@@ -1,0 +1,73 @@
+"""The port stands alone: var_tpu_torch and chip_smoke.py import neither
+JAX (nor flax, optax, orbax) nor anything of var_tpu, and no pandas, which
+the GPU machine does not have."""
+import ast
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "var_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas")
+VAR_TPU = re.compile(r"\bvar_tpu\b(?!_torch)")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _modules():
+    names = []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        names.append(".".join(parts))
+    return names
+
+
+def _imported_names(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_import_in_source(path):
+    for name in _imported_names(path):
+        top = name.split(".")[0]
+        assert top not in FORBIDDEN, f"{path}: imports {name}"
+        assert not VAR_TPU.search(name), f"{path}: imports {name}"
+
+
+def test_every_module_imports_with_jax_and_var_tpu_blocked():
+    blocked = FORBIDDEN + ("var_tpu",)
+    code = "\n".join([
+        "import importlib, sys",
+        f"for name in {blocked!r}:",
+        "    for key in [k for k in sys.modules",
+        "                if k == name or k.startswith(name + '.')]:",
+        "        del sys.modules[key]",
+        "    sys.modules[name] = None",
+        f"for mod in {_modules()!r} + ['chip_smoke']:",
+        "    importlib.import_module(mod)",
+        "leaked = [k for k, v in sys.modules.items() if v is not None and",
+        f"          k.split('.')[0] in {blocked!r}]",
+        "assert not leaked, leaked",
+        "print('ok')",
+    ])
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("ok")

@@ -1,0 +1,76 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+This file imports nothing of JAX or var_tpu, so that it also runs on a CUDA
+machine without JAX, where tests/conftest.py (which imports jax) is left
+out:
+
+    python -m pytest tests/test_torch_kernels.py --noconftest -m cuda
+
+The `cuda` tests skip where no card is present (the kernel has no CPU
+mode). Tolerance rtol = atol = 1e-4: kernel and plain version are both
+IEEE float32 and differ only in the order of summation.
+"""
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from var_tpu_torch.ops import audio
+from var_tpu_torch.ops import mel_log_dct as mld
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _require_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+
+
+def _power(preset, B, frames, seed):
+    params = audio.PARAM_TABLE[preset]
+    rng = np.random.RandomState(seed)
+    wav = rng.randn(B, frames * params.hop_length + params.n_fft) * 0.2
+    wav[-1] = 0.0  # a silent row
+    wav = torch.from_numpy(wav.astype(np.float32)).cuda()
+    power = audio._stft_power_gemm(wav, params, pre_padded=True).contiguous()
+    power[0, -3:] = 0.0  # masked frames
+    return params, wav, power
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset,B,frames", [
+    ("GoogleCommand", 128, 100),  # the arm main path
+    ("GoogleCommand", 8, 600),    # the ai2thor frame count
+    ("NSynth", 8, 100),           # n_fft 1024: F = 513
+])
+def test_mel_log_dct_kernel_matches_plain_version(preset, B, frames):
+    _require_card()
+    params, _, power = _power(preset, B, frames, seed=0)
+    before = mld.mel_log_dct.launches
+    got = mld.mel_log_dct(power, params)
+    torch.cuda.synchronize()
+    assert mld.mel_log_dct.launches == before + 1
+    torch.testing.assert_close(
+        got, mld.mel_log_dct_reference(power, params), **TOL)
+
+
+@pytest.mark.cuda
+def test_pallas_backend_launches_the_kernel_and_matches_gemm():
+    _require_card()
+    params, wav, _ = _power("GoogleCommand", 16, 100, seed=1)
+    before = mld.mel_log_dct.launches
+    got = audio.mfcc_batch(wav, params, backend="pallas", pre_padded=True)
+    torch.cuda.synchronize()
+    assert mld.mel_log_dct.launches == before + 1
+    torch.testing.assert_close(
+        got, audio.mfcc_batch(wav, params, backend="gemm", pre_padded=True),
+        **TOL)
+
+
+def test_build_without_nvcc_raises(monkeypatch):
+    if shutil.which("nvcc"):
+        pytest.skip("nvcc is present; the build itself is tested on the card")
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        mld.build(force=True)

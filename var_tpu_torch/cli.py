@@ -1,0 +1,64 @@
+"""Shared CLI handling for the port's entry points (mirrors var_tpu/cli.py):
+
+    python -m var_tpu_torch.pretext --env arms [--device cpu] --set KNOB=VALUE ...
+
+The device defaults to CUDA; --device cpu runs on the CPU.
+"""
+from __future__ import annotations
+
+import argparse
+import ast
+from typing import Optional, Sequence
+
+from var_tpu_torch.config import main_config
+
+
+def parse_args(argv: Optional[Sequence[str]] = None, description: str = ""):
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument(
+        "--env", choices=["arms", "ai2thor"], default=None,
+        help="environment profile (default: VAR_TPU_ENV or 'ai2thor')")
+    p.add_argument(
+        "--device", default=None,
+        help="torch device (default: cuda; raises if CUDA is absent)")
+    p.add_argument(
+        "--set", nargs="*", default=[], metavar="KNOB=VALUE",
+        help="config overrides; values are Python literals "
+             "(e.g. --set pretextEpoch=5 audioBackend='pallas')")
+    return p.parse_args(argv)
+
+
+def parse_set_items(items):
+    """KNOB=VALUE strings -> override dict; values are Python literals
+    with bare-string and true/false/none fallbacks."""
+    overrides = {}
+    for item in items:
+        if "=" not in item:
+            raise SystemExit(f"--set expects KNOB=VALUE, got {item!r}")
+        key, _, raw = item.partition("=")
+        try:
+            value = ast.literal_eval(raw)
+        except (ValueError, SyntaxError):
+            low = raw.strip().lower()
+            if low in ("true", "false"):
+                value = low == "true"
+            elif low in ("none", "null"):
+                value = None
+            else:
+                value = raw  # bare strings: --set audioBackend=pallas
+        overrides[key] = value
+    return overrides
+
+
+def build_config(args, role: str):
+    config = main_config(env=args.env)
+    config.pretext_RL = role
+    overrides = parse_set_items(args.set)
+    if overrides:
+        try:
+            config.override(**overrides)
+        except AttributeError as e:
+            raise SystemExit(str(e))
+        # re-validate: the __init__-time check only saw the defaults
+        config.cfg_check()
+    return config

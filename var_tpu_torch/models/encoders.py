@@ -1,0 +1,147 @@
+"""VAR pretext encoders, arm variant (port of var_tpu/models/encoders.py).
+
+An image CNN and a sound CNN, each followed by an MLP head, both projected
+onto the unit sphere. NCHW throughout, which is also the JAX package's
+public layout, so inputs compare like with like. The flattened conv
+features are in torch's CHW order; convert.py permutes the first dense
+layer of each head when it loads the JAX package's parameters.
+
+Parameters start the way flax initialises them (truncated-normal
+lecun kernels, zero biases) so that a port run trains from the same kind
+of start; the draws come from a torch.Generator and differ from JAX's.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from var_tpu_torch.ops.losses import l2_normalize
+
+
+class ArmImageBranch(nn.Module):
+    """5x (3x3 stride-2 conv + ReLU): (3,96,96) -> (64,3,3) -> flatten."""
+
+    def __init__(self):
+        super().__init__()
+        chans = (3, 32, 32, 64, 64, 64)
+        self.convs = nn.ModuleList(
+            nn.Conv2d(chans[i], chans[i + 1], 3, stride=2, padding=1)
+            for i in range(5))
+
+    def forward(self, x):
+        for conv in self.convs:
+            x = F.relu(conv(x))
+        return x.flatten(1)  # (B, 64*3*3)
+
+
+class ArmSoundBranch(nn.Module):
+    """Conv stack over (1,100,40) MFCC collapsing the feature axis:
+    (1,100,40) -> (32,48,1) -> ... -> (32,5,1) -> flatten."""
+
+    def __init__(self):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            [nn.Conv2d(1, 32, (5, 40), stride=(2, 1))]
+            + [nn.Conv2d(32, 32, (3, 1), stride=(2, 1)) for _ in range(3)])
+
+    def forward(self, x):
+        for conv in self.convs:
+            x = F.relu(conv(x))
+        return x.flatten(1)  # (B, 32*5*1)
+
+
+class TripletHead(nn.Module):
+    """MLP projection head ending at representationDim, before the L2 norm.
+    layers[i] holds the JAX package's Dense_i."""
+
+    def __init__(self, in_dim: int, hidden: Sequence[int], out_dim: int):
+        super().__init__()
+        dims = (in_dim, *hidden, out_dim)
+        self.layers = nn.ModuleList(
+            nn.Linear(dims[i], dims[i + 1]) for i in range(len(dims) - 1))
+
+    def forward(self, x):
+        for layer in self.layers[:-1]:
+            x = F.relu(layer(x))
+        return self.layers[-1](x)
+
+
+class VARPretextNet(nn.Module):
+    """Shared VAR contract: encode_image / encode_sound both project onto
+    the L2-normalised representation sphere. Arm variant only."""
+
+    def __init__(self, representation_dim: int = 3):
+        super().__init__()
+        self.img_branch = ArmImageBranch()
+        self.sound_branch = ArmSoundBranch()
+        self.img_triplet = TripletHead(64 * 3 * 3, (128,), representation_dim)
+        self.sound_triplet = TripletHead(32 * 5, (128,), representation_dim)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """flax defaults: lecun_normal kernels (truncated normal, variance
+        1/fan_in), zero biases."""
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                fan_in = m.weight[0].numel()
+                # flax's truncated_normal rescales so the variance is
+                # exactly 1/fan_in after truncation at two std
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+                nn.init.zeros_(m.bias)
+        return self
+
+    def encode_image(self, image):
+        """image (B,3,96,96) in [0,1] -> (raw_feat, sphere_feat)."""
+        raw = self.img_branch(image[:, :3])
+        return raw, l2_normalize(self.img_triplet(raw))
+
+    def encode_sound(self, sound):
+        """sound (B,1,T,40) MFCC -> (raw_feat, sphere_feat)."""
+        raw = self.sound_branch(sound)
+        return raw, l2_normalize(self.sound_triplet(raw))
+
+    def forward(self, image, sound_positive,
+                sound_negative=None) -> Dict[str, torch.Tensor]:
+        """Training forward over a triplet batch; the JAX package's output
+        keys."""
+        image_feat_raw, image_feat = self.encode_image(image)
+        pos_raw, pos_feat = self.encode_sound(sound_positive)
+        out = dict(image_feat=image_feat, image_feat_raw=image_feat_raw,
+                   sound_feat_positive=pos_feat, pos_sound_raw=pos_raw)
+        if sound_negative is not None:
+            out["sound_feat_negative"] = self.encode_sound(sound_negative)[1]
+        return out
+
+
+def _arm(config) -> VARPretextNet:
+    dtype = getattr(config, "computeDtype", "float32")
+    if dtype != "float32":
+        raise NotImplementedError(
+            f"computeDtype={dtype!r} is not ported; only float32 is")
+    return VARPretextNet(representation_dim=config.representationDim)
+
+
+def _ai2thor(config):
+    raise NotImplementedError(
+        "ai2thor_VARPretextNet (CRNN sound branch) is not ported yet "
+        "(ROADMAP 'Modules left to port', item 6: the ai2thor profile)")
+
+
+_MODEL_REGISTRY = {
+    "arm_VARPretextNet": _arm,
+    "ai2thor_VARPretextNet": _ai2thor,
+}
+
+
+def build_pretext_model(config) -> VARPretextNet:
+    key = config.pretextModel
+    if key not in _MODEL_REGISTRY:
+        raise KeyError(
+            f"Unknown pretext model {key!r}; have {sorted(_MODEL_REGISTRY)}")
+    return _MODEL_REGISTRY[key](config)
