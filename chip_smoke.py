@@ -8,9 +8,13 @@ Phases; any failure exits non-zero and no phase is skipped:
 2. build: compiles every kernel of the pretext path from var_tpu_torch/csrc
    with nvcc (sm_90a) and prints the build time;
 3. each kernel against its plain PyTorch version on the card, at the main
-   path's shape and two other shapes the repo's configs give, at
-   rtol = atol = 1e-4, with its time (CUDA events) beside the plain
-   version's and the card's bound;
+   path's shape and two other shapes the repo's configs give, in both input
+   layouts (the gemm STFT's view, contiguous), at rtol = atol = 1e-4, with
+   NaN and inf rows; then its times (CUDA events, queued behind a spin
+   kernel so that the host's launch overhead stays out): cold, rotating
+   over > 100 MB of inputs so each call reads device memory, and warm, one
+   input back to back as on the path; the wrapper's host time per call;
+   the plain version's times beside them, and the card's bound;
 4. the slice: `python -m var_tpu_torch.pretext`'s main at full arm width
    (batch 128, image 3x96x96, sound 1x100x40, representationDim 3,
    synthetic audio) with audioBackend='pallas': collect, then 5 epochs of
@@ -19,7 +23,8 @@ Phases; any failure exits non-zero and no phase is skipped:
 5. one training step from one initial state and batch with
    audioBackend='pallas' and with 'gemm': the losses agree at rtol 1e-4;
 6. where an epoch's time goes: torch.profiler over one epoch of 6 steps,
-   the device's busy share of the wall time and the top ops.
+   the device's busy share of the wall time, the kernel launches per step
+   and every kernel's time.
 
 It then prints the card's name and power limit as nvidia-smi gives them,
 one JSON line with the kernels' numbers, and, last, one JSON line
@@ -27,6 +32,7 @@ one JSON line with the kernels' numbers, and, last, one JSON line
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import shutil
@@ -66,85 +72,196 @@ def peaks(name: str):
     raise AssertionError("unreachable")
 
 
-def time_ms(torch, fn, samples: int = 25, per_sample: int = 20):
-    """Median, min and max ms per call over `samples` runs of
-    `per_sample` back-to-back calls, timed with CUDA events."""
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(samples):
+# (label, STFT preset, B, frames): the main path (arm, n_fft 512), the
+# ai2thor frame count, and the n_fft-1024 presets (NSynth/UrbanSound)
+CASES = (("main", "GoogleCommand", 128, 100),
+         ("ai2thor T", "GoogleCommand", 8, 600),
+         ("n_fft 1024", "NSynth", 8, 100))
+COLD_BYTES = 100e6  # rotating inputs this large cannot stay in the 50 MB L2
+_spin = {}
+
+
+def spectrograms(torch, np, audio, preset, B, frames, seed=0):
+    """The kernel's input at one case, from the gemm STFT of seeded noise
+    with a silent batch row and masked frames, in both layouts: the STFT's
+    (B, T, F) view of its (B, F, T) output, which the main path hands the
+    kernel, and the contiguous (B, T, F) tensor."""
+    params = audio.PARAM_TABLE[preset]
+    rng = np.random.RandomState(seed)
+    wav = (rng.randn(B, frames * params.hop_length + params.n_fft) * 0.2
+           ).astype(np.float32)
+    wav[-1] = 0.0  # a silent row: every frame gives log(1e-6)
+    with torch.no_grad():
+        view = audio._stft_power_gemm(torch.from_numpy(wav).cuda(), params,
+                                      pre_padded=True)
+        view[0, -5:] = 0.0  # masked-frame rows
+    return params, {"stft view": view, "contiguous": view.contiguous()}
+
+
+def spin_cycles(torch, host_ms: float) -> int:
+    """Cycles of torch.cuda._sleep that keep the device busy for three
+    times `host_ms`, calibrated once per process."""
+    if "ms_per_mcycle" not in _spin:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
+        torch.cuda._sleep(1_000_000)
+        end.record()
+        end.synchronize()
+        _spin["ms_per_mcycle"] = start.elapsed_time(end)
+    return int(1e6 * 3 * host_ms / _spin["ms_per_mcycle"]) + 1
+
+
+def time_ms(torch, fn, inputs, samples: int = 15, per_sample: int = 20):
+    """Median, min and max device ms per call of `fn`, taking `inputs` in
+    turn, over `samples` runs of `per_sample` back-to-back calls timed with
+    CUDA events, and the host's median ms per call. Each run is queued
+    behind a spin kernel that outlasts the host's launch time, so the device
+    runs the calls without gaps and the host's overhead stays out of the
+    device time."""
+    for x in inputs[:3]:
+        fn(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for j in range(per_sample):
+        fn(inputs[j % len(inputs)])
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    spin = spin_cycles(torch, host_ms)
+    times, host, k = [], [], 0
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        t0 = time.perf_counter()
         for _ in range(per_sample):
-            fn()
+            fn(inputs[k % len(inputs)])
+            k += 1
+        host.append((time.perf_counter() - t0) * 1e3 / per_sample)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / per_sample)
-    return statistics.median(times), min(times), max(times)
+    return (statistics.median(times), min(times), max(times),
+            statistics.median(host))
+
+
+def cold_warm(torch, fn, x):
+    """(cold, warm) timings of fn: cold rotates over enough clones of x
+    (strides kept) that each call reads its input from device memory;
+    warm calls fn on x back to back, as the path does right after the STFT
+    has written x."""
+    n = max(8, math.ceil(COLD_BYTES / (4 * x.numel())) + 1)
+    clones = [x.clone() for _ in range(n)]
+    cold = time_ms(torch, fn, clones)
+    del clones
+    return cold, time_ms(torch, fn, [x])
+
+
+def fmt(t) -> str:
+    return f"{t[0]:.5f} ms (min {t[1]:.5f}, max {t[2]:.5f})"
+
+
+def kernel_times(torch, np, mld, audio):
+    """Cold and warm times of `mld.mel_log_dct` (the wrapper) at every case
+    and layout, and of `mld.mel_log_dct_reference` at the main one."""
+    rows = []
+    with torch.no_grad():
+        for label, preset, B, frames in CASES:
+            params, layouts = spectrograms(torch, np, audio, preset, B, frames)
+            for layout, power in layouts.items():
+                fn = functools.partial(mld.mel_log_dct, params=params)
+                cold, warm = cold_warm(torch, fn, power)
+                row = dict(case=label, shape=list(power.shape), layout=layout,
+                           cold_ms=cold[0], warm_ms=warm[0],
+                           host_ms=warm[3])
+                print(f"time {label} {tuple(power.shape)} {layout}: "
+                      f"cold {fmt(cold)}; warm {fmt(warm)}; host "
+                      f"{warm[3]:.5f} ms a call", flush=True)
+                if label == "main":
+                    ref = functools.partial(mld.mel_log_dct_reference,
+                                            params=params)
+                    pcold, pwarm = cold_warm(torch, ref, power)
+                    row.update(plain_cold_ms=pcold[0], plain_warm_ms=pwarm[0])
+                    print(f"time {label} {layout} plain: cold {fmt(pcold)}; "
+                          f"warm {fmt(pwarm)}", flush=True)
+                    # yardstick, not the same function: one PyTorch
+                    # reduction that reads the same input once
+                    rcold, rwarm = cold_warm(
+                        torch, lambda x: torch.sum(x, dim=-1), power)
+                    row.update(read_cold_ms=rcold[0], read_warm_ms=rwarm[0])
+                    print(f"time {label} {layout} torch.sum(power, -1) "
+                          f"(reads the input once): cold {fmt(rcold)}; warm "
+                          f"{fmt(rwarm)}", flush=True)
+                rows.append(row)
+    return rows
 
 
 def check_mel_log_dct(torch, np, bw, flops):
-    """Phase 3 for the mel-log-DCT kernel."""
+    """Phase 3 for the mel-log-DCT kernel: against its plain version at
+    every case and layout, finite and non-finite rows."""
     from var_tpu_torch.ops import audio
     from var_tpu_torch.ops import mel_log_dct as mld
 
-    rng = np.random.RandomState(0)
-    # (label, STFT preset, B, frames): the main path (arm, n_fft 512), the
-    # ai2thor frame count, and the n_fft-1024 presets (NSynth/UrbanSound)
-    cases = (("main", "GoogleCommand", 128, 100),
-             ("ai2thor T", "GoogleCommand", 8, 600),
-             ("n_fft 1024", "NSynth", 8, 100))
     max_abs = 0.0
-    timing = None
-    for label, preset, B, frames in cases:
-        params = audio.PARAM_TABLE[preset]
-        L = frames * params.hop_length + params.n_fft
-        wav = (rng.randn(B, L) * 0.2).astype(np.float32)
-        wav[-1] = 0.0  # a silent row: every frame gives log(1e-6)
-        wav_t = torch.from_numpy(wav).cuda()
-        with torch.no_grad():
-            power = audio._stft_power_gemm(wav_t, params,
-                                           pre_padded=True).contiguous()
-            power[0, -5:] = 0.0  # masked-frame rows
-            got = mld.mel_log_dct(power, params)
-            torch.cuda.synchronize()
-            want = mld.mel_log_dct_reference(power, params)
-            torch.cuda.synchronize()
-        diff = (got - want).abs()
-        abs_err = diff.max().item()
-        big = want.abs() >= 1e-2  # relative error only where it means one
-        rel_err = (diff[big] / want.abs()[big]).max().item()
-        print(f"mel_log_dct {label} {tuple(power.shape)}: max abs err "
-              f"{abs_err:.3e}, max rel err {rel_err:.3e} (where |ref| >= "
-              f"1e-2)", flush=True)
-        if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
-            fail(f"mel_log_dct disagrees with its plain version at {label}")
-        max_abs = max(max_abs, abs_err)
-        if label == "main":
-            B_, T, F = power.shape
-            rows = B_ * T
-            n_bytes = 4 * (rows * F + F * 40 + 40 * 40 + rows * 40)
-            n_flops = 2 * rows * 40 * F + 2 * rows * 40 * 40
-            t_bytes, t_flops = n_bytes / bw * 1e3, n_flops / flops * 1e3
-            with torch.no_grad():
-                k = time_ms(torch, lambda: mld.mel_log_dct(power, params))
-                p = time_ms(torch,
-                            lambda: mld.mel_log_dct_reference(power, params))
-            timing = dict(ms=k[0], plain_ms=p[0],
-                          bound_ms=max(t_bytes, t_flops),
-                          bound_by="bytes" if t_bytes >= t_flops
-                          else "operations")
-            print(f"mel_log_dct {tuple(power.shape)}: kernel median "
-                  f"{k[0]:.5f} ms (min {k[1]:.5f}, max {k[2]:.5f}); plain "
-                  f"median {p[0]:.5f} ms (min {p[1]:.5f}, max {p[2]:.5f}); "
-                  f"bound {timing['bound_ms']:.5f} ms ({n_bytes} bytes, "
-                  f"{n_flops} flops, {timing['bound_by']})", flush=True)
+    with torch.no_grad():
+        for label, preset, B, frames in CASES:
+            params, layouts = spectrograms(torch, np, audio, preset, B, frames)
+            for layout, power in layouts.items():
+                got = mld.mel_log_dct(power, params)
+                want = mld.mel_log_dct_reference(power, params)
+                torch.cuda.synchronize()
+                diff = (got - want).abs()
+                abs_err = diff.max().item()
+                big = want.abs() >= 1e-2  # relative error where it means one
+                rel_err = (diff[big] / want.abs()[big]).max().item()
+                print(f"mel_log_dct {label} {tuple(power.shape)} {layout}: "
+                      f"max abs err {abs_err:.3e}, max rel err {rel_err:.3e} "
+                      f"(where |ref| >= 1e-2)", flush=True)
+                if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+                    fail(f"mel_log_dct disagrees with its plain version at "
+                         f"{label}, {layout}")
+                max_abs = max(max_abs, abs_err)
+                # one NaN bin, one inf bin outside every band (bin 0), one
+                # -inf bin: the dense form makes each such row all NaN
+                bad = power.clone()
+                F = bad.shape[-1]
+                bad[0, 1, 17] = math.nan
+                bad[0, 2, 0] = math.inf
+                bad[-1, 3, F - 1] = -math.inf
+                got = mld.mel_log_dct(bad, params)
+                want = mld.mel_log_dct_reference(bad, params)
+                rows_nan = got[0, 1:3].isnan().all() and got[-1, 3].isnan().all()
+                if not (rows_nan and torch.allclose(got, want, rtol=RTOL,
+                                                    atol=ATOL, equal_nan=True)):
+                    fail(f"mel_log_dct non-finite rows differ from the plain "
+                         f"version at {label}, {layout}")
+        print("mel_log_dct: NaN/inf rows all NaN, as in the plain version",
+              flush=True)
+        rows = kernel_times(torch, np, mld, audio)
+    main = next(r for r in rows
+                if r["case"] == "main" and r["layout"] == "stft view")
+    Bm, T, F = main["shape"]
+    n_rows = Bm * T
+    mel = audio._frontend_constants(audio.PARAM_TABLE["GoogleCommand"],
+                                    "float32")[2]
+    nnz = int(np.count_nonzero(mel))
+    n_bytes = 4 * (n_rows * F + F * 40 + 40 * 40 + n_rows * 40)
+    n_flops = 2 * n_rows * (nnz + 40 * 40)  # the banded product's needs
+    t_bytes, t_flops = n_bytes / bw * 1e3, n_flops / flops * 1e3
+    bound = max(t_bytes, t_flops)
+    print(f"mel_log_dct {tuple(main['shape'])}: bound {bound:.5f} ms "
+          f"({n_bytes} bytes, {n_flops} flops); kernel cold "
+          f"{main['cold_ms']:.5f} ms = {100 * bound / main['cold_ms']:.1f}% "
+          f"of the bound", flush=True)
     return dict(name="mel_log_dct", route="cuda",
                 source="var_tpu_torch/csrc/mel_log_dct.cu",
                 replaces="var_tpu/ops/audio_pallas.py:31",
-                max_abs_err=max_abs, library_ms=None, **timing)
+                max_abs_err=max_abs, ms=main["cold_ms"],
+                warm_ms=main["warm_ms"], plain_ms=main["plain_cold_ms"],
+                bound_ms=bound,
+                bound_by="bytes" if t_bytes >= t_flops else "operations",
+                library_ms=None)
 
 
 def run_slice(torch):
@@ -261,7 +378,9 @@ def breakdown(torch, trainer, ds, bank):
           f"(profiled epoch), wall {wall_ms:.4f} ms/step (unprofiled "
           f"epoch): device busy {100 * device_ms / wall_ms:.1f}% of wall",
           flush=True)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+    launches = sum(e.count for e in kernels) / steps
+    print(f"breakdown: {launches:.1f} kernel launches per step", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
         ms = e.self_device_time_total / 1e3 / steps
         print(f"breakdown:   {ms:8.4f} ms/step {100 * ms / device_ms:5.1f}% "
               f"x{e.count // steps:<3d} {e.key[:80]}", flush=True)
@@ -272,9 +391,9 @@ def main():
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
-    sys.path.insert(0, str(ROOT))
     import numpy as np
 
+    sys.path.insert(0, str(ROOT))
     from var_tpu_torch.device import precision_flags, resolve_device
     from var_tpu_torch.ops import mel_log_dct as mld
 

@@ -85,6 +85,146 @@ def test_mel_log_dct_rejects_what_the_kernel_does_not_take(bad):
         mld.mel_log_dct(p, params)
 
 
+def _layout(power: np.ndarray, layout: str) -> torch.Tensor:
+    """(B, T, F) numpy power as the kernel takes it: contiguous, or the
+    gemm STFT's view of a contiguous (B, F, T) tensor."""
+    if layout == "contiguous":
+        return torch.from_numpy(np.ascontiguousarray(power))
+    return torch.from_numpy(
+        np.ascontiguousarray(power.transpose(0, 2, 1))).transpose(1, 2)
+
+
+def _banded_model(power: torch.Tensor, params) -> np.ndarray:
+    """numpy model of the kernel's arithmetic, reading the tensor's storage
+    with the kernel's addressing: the padded spans of kernel_table summed
+    in float32, a row flagged when a span sum or a hole is non-finite, the
+    log, then the DCT from dct_half's 20 terms x[n] +- x[39 - n]."""
+    B, T, F = power.shape
+    freq_major = mld._freq_major(power)
+    store = (power.transpose(1, 2) if freq_major else power
+             ).contiguous().numpy().ravel()
+    b, t = np.meshgrid(np.arange(B), np.arange(T), indexing="ij")
+
+    def bin_values(f):  # (B, T)
+        return store[b * F * T + f * T + t] if freq_major \
+            else store[(b * T + t) * F + f]
+
+    _, _, mel, dct, _, _ = audio._frontend_constants(params, "float32")
+    table, weights = mld.kernel_table(mel)
+    rows, holes = table[:160].reshape(40, 4), table[160:]
+    half = mld.dct_half(dct)
+    warps, _, per_warp = half.shape
+    sums = np.zeros((B, T, 40), np.float32)
+    bad = np.zeros((B, T), bool)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for m, lo, length, off in rows:
+            acc = np.zeros((B, T), np.float32)
+            for k in range(length):
+                acc += bin_values(lo + k) * weights[off + k]
+            sums[..., m] = acc
+            bad |= ~np.isfinite(acc)
+        for h in holes:
+            bad |= ~np.isfinite(bin_values(h))
+        lmel = np.log(sums + np.float32(audio.LOG_EPS))
+        lmel[bad] = np.nan
+        out = np.empty((B, T, 40), np.float32)
+        for w in range(warps):
+            v = lmel[..., :20] + (-1) ** w * lmel[..., 39 - np.arange(20)]
+            for j in range(per_warp):
+                out[..., w + warps * j] = v @ half[w, :, j]
+    return out
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_band_tables_rebuild_the_filterbank_bit_for_bit(preset):
+    params = jaudio.PARAM_TABLE[preset]
+    mel = audio._frontend_constants(params, "float32")[2]
+    lo, length, offset, weights = mld.band_table(mel)
+    dense = np.zeros_like(mel)
+    for m in range(40):
+        dense[lo[m]: lo[m] + length[m], m] = \
+            weights[offset[m]: offset[m] + length[m]]
+    np.testing.assert_array_equal(dense, mel)
+    assert weights.size == np.count_nonzero(mel) == {257: 494, 513: 988}[
+        mel.shape[0]]
+
+    table, padded = mld.kernel_table(mel)
+    rows, holes = table[:160].reshape(40, 4), table[160:]
+    assert sorted(rows[:, 0]) == list(range(40))
+    assert (rows[:, 2] % 4 == 0).all() and (rows[:, 3] % 4 == 0).all()
+    dense = np.zeros_like(mel)
+    covered = np.zeros(mel.shape[0], bool)
+    for m, start, n, off in rows:
+        assert 0 <= start and start + n <= mel.shape[0]
+        dense[start: start + n, m] = padded[off: off + n]
+        covered[start: start + n] = True
+    np.testing.assert_array_equal(dense, mel)
+    np.testing.assert_array_equal(holes, np.flatnonzero(~covered))
+    loads = rows[:, 2].reshape(mld.KERNEL_WARPS, -1).sum(1)
+    assert loads.max() - loads.min() <= 8  # dealt longest first
+
+
+def test_band_tables_raise_for_an_empty_filter():
+    mel = audio._frontend_constants(jaudio.PARAM_TABLE["GoogleCommand"],
+                                    "float32")[2].copy()
+    mel[:, 7] = 0.0
+    with pytest.raises(ValueError, match="filter 7"):
+        mld.band_table(mel)
+    with pytest.raises(ValueError, match="filter 7"):
+        mld.kernel_table(mel)
+
+
+def test_dct_half_is_the_dct_and_rejects_other_matrices():
+    dct = audio._frontend_constants(jaudio.PARAM_TABLE["GoogleCommand"],
+                                    "float32")[3]
+    half = mld.dct_half(dct)
+    assert half.shape == (mld.KERNEL_WARPS, 20, 40 // mld.KERNEL_WARPS)
+    for w in range(mld.KERNEL_WARPS):
+        np.testing.assert_array_equal(half[w], dct[:20, w::mld.KERNEL_WARPS])
+    with pytest.raises(ValueError, match="DCT-II"):
+        mld.dct_half(np.random.RandomState(0).rand(40, 40))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "stft view"])
+@pytest.mark.parametrize("preset", PRESETS)
+def test_banded_model_matches_dense_and_pallas_kernel(preset, layout):
+    params, power = _power(preset, seed=7)
+    p = _layout(power, layout)
+    assert mld._freq_major(p) == (layout == "stft view")
+    got = _banded_model(p, params)
+    np.testing.assert_allclose(
+        got, mld.mel_log_dct_reference(p, params).numpy(), **TOL)
+    np.testing.assert_allclose(
+        got, np.asarray(mel_log_dct_pallas(jnp.asarray(power), params)), **TOL)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "stft view"])
+def test_banded_model_and_plain_version_turn_non_finite_rows_nan(layout):
+    params, power = _power("GoogleCommand", seed=8)
+    power[0, 1, 17] = np.nan
+    power[0, 2, 0] = np.inf  # bin 0 lies in no band: a hole
+    power[1, 3, 100] = np.inf
+    power[2, 4, 256] = -np.inf
+    p = _layout(power, layout)
+    want = mld.mel_log_dct_reference(p, params).numpy()
+    bad = np.zeros(power.shape[:2], bool)
+    bad[0, 1] = bad[0, 2] = bad[1, 3] = bad[2, 4] = True
+    assert np.isnan(want[bad]).all() and np.isfinite(want[~bad]).all()
+    np.testing.assert_allclose(_banded_model(p, params), want, equal_nan=True,
+                               **TOL)
+
+
+def test_wrapper_takes_the_stft_view_as_it_lies():
+    params = jaudio.PARAM_TABLE["GoogleCommand"]
+    wav = torch.from_numpy((np.random.RandomState(9).randn(
+        2, 10 * params.hop_length + params.n_fft) * 0.2).astype(np.float32))
+    view = audio._stft_power_gemm(wav, params, pre_padded=True)
+    assert view.stride() == (view.shape[1] * view.shape[2], 1, view.shape[1])
+    torch.testing.assert_close(
+        mld.mel_log_dct(view, params),
+        mld.mel_log_dct_reference(view.contiguous(), params), **TOL)
+
+
 @pytest.mark.parametrize("preset", PRESETS)
 @pytest.mark.parametrize("pre_padded", [False, True])
 @pytest.mark.parametrize("backend", ["fft", "gemm", "pallas"])

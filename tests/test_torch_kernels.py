@@ -27,32 +27,59 @@ def _require_card():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
 
 
-def _power(preset, B, frames, seed):
+def _power(preset, B, frames, seed, layout="contiguous"):
+    """The gemm STFT's power of seeded noise on the card, with a silent row
+    and masked frames, as the view the STFT returns ("stft view") or
+    contiguous."""
     params = audio.PARAM_TABLE[preset]
     rng = np.random.RandomState(seed)
     wav = rng.randn(B, frames * params.hop_length + params.n_fft) * 0.2
     wav[-1] = 0.0  # a silent row
     wav = torch.from_numpy(wav.astype(np.float32)).cuda()
-    power = audio._stft_power_gemm(wav, params, pre_padded=True).contiguous()
+    power = audio._stft_power_gemm(wav, params, pre_padded=True)
     power[0, -3:] = 0.0  # masked frames
-    return params, wav, power
+    return params, wav, power if layout == "stft view" else power.contiguous()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("preset,B,frames", [
+SHAPES = [
     ("GoogleCommand", 128, 100),  # the arm main path
     ("GoogleCommand", 8, 600),    # the ai2thor frame count
     ("NSynth", 8, 100),           # n_fft 1024: F = 513
-])
-def test_mel_log_dct_kernel_matches_plain_version(preset, B, frames):
+]
+LAYOUTS = ["stft view", "contiguous"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("preset,B,frames", SHAPES)
+def test_mel_log_dct_kernel_matches_plain_version(preset, B, frames, layout):
     _require_card()
-    params, _, power = _power(preset, B, frames, seed=0)
+    params, _, power = _power(preset, B, frames, seed=0, layout=layout)
+    assert mld._freq_major(power) == (layout == "stft view")
     before = mld.mel_log_dct.launches
     got = mld.mel_log_dct(power, params)
     torch.cuda.synchronize()
     assert mld.mel_log_dct.launches == before + 1
     torch.testing.assert_close(
         got, mld.mel_log_dct_reference(power, params), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("preset,B,frames", SHAPES)
+def test_non_finite_rows_are_nan_as_in_the_plain_version(preset, B, frames,
+                                                          layout):
+    _require_card()
+    params, _, power = _power(preset, B, frames, seed=3, layout=layout)
+    F = power.shape[-1]
+    power[0, 1, 17] = float("nan")
+    power[0, 2, 0] = float("inf")  # bin 0 lies in no band
+    power[-1, 3, F - 1] = -float("inf")
+    got = mld.mel_log_dct(power, params)
+    torch.cuda.synchronize()
+    assert got[0, 1:3].isnan().all() and got[-1, 3].isnan().all()
+    torch.testing.assert_close(got, mld.mel_log_dct_reference(power, params),
+                               equal_nan=True, **TOL)
 
 
 @pytest.mark.cuda

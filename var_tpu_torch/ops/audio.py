@@ -235,8 +235,8 @@ def mfcc_batch(wav: torch.Tensor, params: STFTParams, backend: str = "gemm",
     elif backend == "pallas":
         from .mel_log_dct import mel_log_dct
 
-        power = _stft_power_gemm(wav, params, pre_padded)
-        return mel_log_dct(power.contiguous(), params)
+        # the kernel reads the STFT's transposed view as it lies
+        return mel_log_dct(_stft_power_gemm(wav, params, pre_padded), params)
     else:
         raise ValueError(f"unknown audio backend {backend!r}")
     return mfcc_from_power(power, params)
