@@ -24,7 +24,24 @@ Phases; any failure exits non-zero and no phase is skipped:
    audioBackend='pallas' and with 'gemm': the losses agree at rtol 1e-4;
 6. where an epoch's time goes: torch.profiler over one epoch of 6 steps,
    the device's busy share of the wall time, the kernel launches per step
-   and every kernel's time.
+   and every kernel's time;
+7. RL train: `python -m var_tpu_torch.rl`'s main at full arm width (8 envs
+   x 100 steps, GRU 512, GRU input 128, action hidden 128, 4 PPO epochs x
+   2 minibatches) on phase 4's VAR checkpoint: 3 PPO updates, each saved.
+   The kernel launch counts are reset just before and read just after (the
+   RL path launches no TPU-kernel port: mel_log_dct stays at 0). Checks 3
+   checkpoints, finite losses in progress.csv and changed parameters;
+   prints env-steps/s and the p50 of fused_step, env_step and ppo_update;
+8. RL eval: deterministic testRL on phase 7's last checkpoint, 8 envs, 16
+   episodes: test_<ckpt>.csv has 16 rows, the success rate is in [0, 1];
+9. the card against the CPU: a 10-step fused rollout (episodes of 5
+   steps) and one PPO update at full width, from the same weights, noise,
+   batch and permutations (var_tpu_torch/tools/rl_check.py): values,
+   log-probs, normalised rewards, returns and losses at rtol = atol = 1e-4,
+   parameters at the Adam-step tolerance stated there;
+10. where an RL update's time goes: torch.profiler over one 100-step
+   rollout and over its PPO update: kernel launches per env step and per
+   update, the device's busy share of the wall, the ten longest kernels.
 
 It then prints the card's name and power limit as nvidia-smi gives them,
 one JSON line with the kernels' numbers, and, last, one JSON line
@@ -32,6 +49,8 @@ one JSON line with the kernels' numbers, and, last, one JSON line
 """
 from __future__ import annotations
 
+import copy
+import csv
 import functools
 import json
 import math
@@ -386,6 +405,198 @@ def breakdown(torch, trainer, ds, bank):
               f"x{e.count // steps:<3d} {e.key[:80]}", flush=True)
 
 
+RL_DIR = RUN_DIR / "rl_model"
+RL_UPDATES = 3
+
+
+def rl_train(torch, np, mld):
+    """Phase 7: the port's RL entry point at full arm width."""
+    from var_tpu_torch.envs.spaces import Box
+    from var_tpu_torch.models.policy import build_policy
+    from var_tpu_torch.rl import main as rl_main
+    from var_tpu_torch.train.checkpoint import load_checkpoint
+
+    argv = [
+        "--env", "arms", "--set",
+        f'pretextModelLoadDir="{RUN_DIR / "model" / "4"}"',
+        f'RLModelSaveDir="{RL_DIR}"', "RLTrain=True",
+        "RLModelFineTune=False", 'vecEnvBackend="dummy"',
+        f"RLTotalSteps={RL_UPDATES * 8 * 100}", "RLModelSaveInterval=1",
+        "RLLogInterval=1",
+    ]
+    mld.mel_log_dct.launches = 0
+    t0 = time.perf_counter()
+    trainer = rl_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = mld.mel_log_dct.launches
+    cfg = trainer.config
+    width = (cfg.RLNumEnvs, cfg.ppoNumSteps, cfg.RLRecurrentSize,
+             cfg.RLRecurrentInputSize, cfg.RLActionHiddenSize, cfg.ppoEpoch,
+             cfg.ppoNumMiniBatch, tuple(cfg.img_dim), cfg.representationDim)
+    print(f"rl train: {len(trainer.update_stats)} PPO updates at (envs, "
+          f"steps, GRU, GRU input, action hidden, epochs, minibatches, "
+          f"image, rep dim) = {width}; mel_log_dct launches {launches}; "
+          f"wall {wall:.2f} s", flush=True)
+    if width != (8, 100, 512, 128, 128, 4, 2, (3, 96, 96), 3):
+        fail("the RL phase did not run at full arm width")
+    if len(trainer.update_stats) != RL_UPDATES or launches != 0:
+        fail("expected 3 PPO updates and no mel_log_dct launch in RL")
+    labels = sorted(p.name for p in RL_DIR.iterdir() if p.name.isdigit())
+    if labels != [f"{j:05d}" for j in range(RL_UPDATES)]:
+        fail(f"expected {RL_UPDATES} checkpoints, found {labels}")
+    with open(RL_DIR / "progress.csv") as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r[k]) for r in rows
+              for k in ("loss/value_loss", "loss/policy_loss",
+                        "loss/policy_entropy")]
+    print(f"rl train: progress.csv {len(rows)} rows, losses {losses}",
+          flush=True)
+    if not rows or not all(math.isfinite(v) for v in losses):
+        fail("bad RL losses in progress.csv")
+    # the trainer's start: a fresh policy from RLEnvSeed
+    start = build_policy(cfg, Box(-np.ones(2), np.ones(2))).reset_parameters(
+        torch.Generator().manual_seed(int(cfg.RLEnvSeed)))
+    final = load_checkpoint(str(RL_DIR / labels[-1]))["params"]
+    moved = max((final[k] - v).abs().max().item()
+                for k, v in start.state_dict().items())
+    print(f"rl train: largest parameter change {moved:.3e}", flush=True)
+    if not moved > 0:
+        fail("the policy parameters did not change")
+    # update 0 holds the first-call set-up (cuDNN plans, allocator growth)
+    rates = [n / t for n, t in trainer.update_stats[1:]]
+    timer = trainer.timer
+    print(f"rl train: env-steps/s over updates 1-{len(rates)}: median "
+          f"{statistics.median(rates):.1f} (min {min(rates):.1f}, max "
+          f"{max(rates):.1f}); update seconds "
+          f"{[round(t, 5) for _, t in trainer.update_stats]}; p50 ms: "
+          f"fused_step {timer.p50_ms('fused_step'):.4f}, env_step "
+          f"{timer.p50_ms('env_step'):.4f}, ppo_update "
+          f"{timer.p50_ms('ppo_update'):.4f}", flush=True)
+    return trainer
+
+
+def rl_eval(torch, trainer):
+    """Phase 8: deterministic evaluation of phase 7's last checkpoint."""
+    from var_tpu_torch.train.rl import RLTrainer
+
+    cfg = copy.deepcopy(trainer.config)
+    cfg.override(RLTrain=False)
+    evaluator = RLTrainer(cfg, device="cuda")
+    evaluator.load_pretext()
+    path = RL_DIR / f"{RL_UPDATES - 1:05d}"
+    n_envs, n_episodes = 8, 16
+    t0 = time.perf_counter()
+    rate = evaluator.testRL(num_episodes=n_episodes, policy_path=str(path),
+                            num_envs=n_envs)
+    wall = time.perf_counter() - t0
+    with open(RL_DIR / f"test_{path.name}.csv") as f:
+        rows = list(csv.DictReader(f))
+    steps = -(-n_episodes // n_envs) * cfg.RLEnvMaxSteps * n_envs
+    print(f"rl eval: {len(rows)} episodes, success rate {rate}, "
+          f"{steps} env steps in {wall:.3f} s = {steps / wall:.1f} "
+          f"env-steps/s (set-up included)", flush=True)
+    if len(rows) != n_episodes or not 0.0 <= rate <= 1.0:
+        fail("bad RL eval output")
+
+
+def card_against_cpu_phase():
+    """Phase 9: one fused rollout and one PPO update, card against CPU."""
+    from var_tpu_torch.config import main_config
+    from var_tpu_torch.tools.rl_check import card_against_cpu
+
+    cfg = main_config(env="arms")
+    cfg.override(RLTrain=True, ppoNumSteps=10, RLEnvMaxSteps=5,
+                 vecEnvBackend="dummy")
+    t0 = time.perf_counter()
+    report = card_against_cpu(cfg)
+    print(f"card vs cpu (8 envs x 10 steps, full width): {report} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if not report["ok"]:
+        fail("the RL step or update differs between the card and the CPU")
+
+
+def rl_breakdown(torch, config):
+    """Phase 10: where one 100-step rollout and its PPO update spend their
+    time (torch.profiler), beside their unprofiled wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from var_tpu_torch.train.rl import RLTrainer
+
+    cfg = copy.deepcopy(config)
+    cfg.override(RLModelSaveDir=str(RUN_DIR / "rl_profile"))
+    trainer = RLTrainer(cfg, device="cuda")
+    trainer.load_pretext()
+    envs, engine, action = trainer.setup_fused()
+    T = engine.T
+    walls = {"rollout": [], "update": []}
+    for _ in range(3):  # the first is warm-up
+        t0 = time.perf_counter()
+        action = trainer.rollout(envs, engine, action)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.update(engine)
+        torch.cuda.synchronize()
+        walls["rollout"].append((t1 - t0) * 1e3)
+        walls["update"].append((time.perf_counter() - t1) * 1e3)
+    gae = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        engine.compute_returns(cfg.ppoUseGAE, cfg.RLGamma, cfg.ppoGAELambda,
+                               cfg.RLUseProperTimeLimits)
+        torch.cuda.synchronize()
+        gae.append((time.perf_counter() - t0) * 1e3)
+    print(f"rl breakdown: unprofiled wall ms, rollout of {T} steps "
+          f"{[round(w, 3) for w in walls['rollout'][1:]]}, PPO update (GAE "
+          f"included) {[round(w, 3) for w in walls['update'][1:]]}; GAE "
+          f"alone {statistics.median(gae):.4f} ms", flush=True)
+
+    def kernels(prof):
+        return [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not e.is_user_annotation]
+
+    profiled = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        action = trainer.rollout(envs, engine, action)
+        torch.cuda.synchronize()
+    profiled["rollout"] = kernels(prof)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.update(engine)
+        torch.cuda.synchronize()
+    profiled["update"] = kernels(prof)
+    envs.close()
+    if not all(profiled.values()):
+        fail("torch.profiler recorded no device kernel")
+    total_dev = 0.0
+    for part, per in (("rollout", T), ("update", 1)):
+        ks = profiled[part]
+        dev_ms = sum(e.self_device_time_total for e in ks) / 1e3
+        total_dev += dev_ms
+        wall = statistics.median(walls[part][1:])
+        unit = "env step" if part == "rollout" else "PPO update"
+        print(f"rl breakdown: {part}: {sum(e.count for e in ks) / per:.1f} "
+              f"kernel launches per {unit}; device kernel time "
+              f"{dev_ms / per:.4f} ms per {unit}; busy "
+              f"{100 * dev_ms / wall:.1f}% of its unprofiled wall", flush=True)
+    wall = statistics.median(walls["rollout"][1:]) + statistics.median(
+        walls["update"][1:])
+    print(f"rl breakdown: rollout + update: device busy "
+          f"{100 * total_dev / wall:.1f}% of {wall:.3f} ms wall", flush=True)
+    merged = {}
+    for ks in profiled.values():
+        for e in ks:
+            t, n = merged.get(e.key, (0.0, 0))
+            merged[e.key] = (t + e.self_device_time_total / 1e3, n + e.count)
+    top = sorted(merged.items(), key=lambda kv: -kv[1][0])[:10]
+    for name, (ms, n) in top:
+        print(f"rl breakdown:   {ms:9.4f} ms {100 * ms / total_dev:5.1f}% "
+              f"x{n:<6d} {name[:90]}", flush=True)
+
+
 def main():
     import torch
 
@@ -412,6 +623,11 @@ def main():
     trainer, launches = run_slice(torch)
     kernel["launches"] = launches[kernel["name"]]
     breakdown(torch, *backend_agreement(torch, trainer.config))
+
+    rl_trainer = rl_train(torch, np, mld)
+    rl_eval(torch, rl_trainer)
+    card_against_cpu_phase()
+    rl_breakdown(torch, rl_trainer.config)
 
     print(line)
     print(json.dumps({"kernels": [kernel]}))

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, and the fused RL
+step and PPO update against the same on the CPU, on the card.
 
 This file imports nothing of JAX or var_tpu, so that it also runs on a CUDA
 machine without JAX, where tests/conftest.py (which imports jax) is left
@@ -8,7 +9,8 @@ out:
 
 The `cuda` tests skip where no card is present (the kernel has no CPU
 mode). Tolerance rtol = atol = 1e-4: kernel and plain version are both
-IEEE float32 and differ only in the order of summation.
+IEEE float32 and differ only in the order of summation. The RL check's
+tolerances are stated in var_tpu_torch/tools/rl_check.py.
 """
 import shutil
 
@@ -16,15 +18,17 @@ import numpy as np
 import pytest
 import torch
 
+from var_tpu_torch.config import main_config
 from var_tpu_torch.ops import audio
 from var_tpu_torch.ops import mel_log_dct as mld
+from var_tpu_torch.tools.rl_check import card_against_cpu
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-def _require_card():
+def _require_card(reason="the kernel has no CPU mode"):
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+        pytest.skip(f"needs a CUDA card: {reason}")
 
 
 def _power(preset, B, frames, seed, layout="contiguous"):
@@ -93,6 +97,19 @@ def test_pallas_backend_launches_the_kernel_and_matches_gemm():
     torch.testing.assert_close(
         got, audio.mfcc_batch(wav, params, backend="gemm", pre_padded=True),
         **TOL)
+
+
+@pytest.mark.cuda
+def test_rl_step_and_update_agree_on_card_and_cpu(monkeypatch):
+    """chip_smoke.py phase 9 at reduced width: GRU 32, 4 envs, 3 steps."""
+    _require_card("it holds the card against the CPU")
+    monkeypatch.setenv("VAR_TPU_SYNTH_CLIPS", "4")
+    cfg = main_config(env="arms")
+    cfg.override(RLNumEnvs=4, ppoNumSteps=3, RLEnvMaxSteps=3,
+                 RLRecurrentSize=32, RLRecurrentInputSize=16,
+                 RLActionHiddenSize=32, vecEnvBackend="dummy", RLTrain=True)
+    report = card_against_cpu(cfg)
+    assert report["ok"], report
 
 
 def test_build_without_nvcc_raises(monkeypatch):

@@ -3,7 +3,7 @@
 ENV/TASK may be set via the VAR_TPU_ENV / VAR_TPU_TASK environment
 variables, with the same names and defaults as the JAX package. Only the
 arm profile is ported; the ai2thor profile waits for its slice (ROADMAP
-"Modules left to port", item 6).
+"Modules left to port", item 7).
 """
 import os
 
@@ -22,7 +22,7 @@ def main_config(env: str = None, task: str = None):
     if env == "ai2thor":
         raise NotImplementedError(
             "the ai2thor profile is not ported yet (ROADMAP 'Modules left "
-            "to port', item 6: the ai2thor profile); use --env arms")
+            "to port', item 7: the ai2thor profile); use --env arms")
     if env == "arms":
         if task not in ("fourInARow",):
             raise NotImplementedError(f"Unknown arms task {task!r}")

@@ -1,15 +1,17 @@
-"""JAX-package parameters -> the port's state_dict (arm VAR).
+"""JAX-package parameters -> the port's state_dicts (arm VAR, arm policy).
 
-Takes `variables["params"]` of var_tpu's VARPretextNet as a nested dict of
-numpy arrays (numpy only: loading an Orbax checkpoint needs orbax, which
-the GPU machine does not have) and returns a state_dict for
-var_tpu_torch.models.encoders.VARPretextNet:
+Takes `variables["params"]` of var_tpu's VARPretextNet or Policy as a
+nested dict of numpy arrays (numpy only: loading an Orbax checkpoint needs
+orbax, which the GPU machine does not have) and returns a state_dict for
+var_tpu_torch's VARPretextNet or Policy:
 
 - conv kernels HWIO -> OIHW;
 - dense kernels (in, out) -> (out, in);
-- the first dense layer of each head reads a flattened conv output. JAX
-  flattens NHWC, the port flattens CHW, so its input rows are permuted by
-  flatten_perm(3, 3, 64) (image) and flatten_perm(5, 1, 32) (sound).
+- the first dense layer after a conv stack reads a flattened conv output.
+  JAX flattens NHWC, the port flattens CHW, so its input rows are permuted
+  by flatten_perm: (3, 3, 64) for the VAR image head, (5, 1, 32) for the
+  sound head, (3, 3, 128) for the policy's cnnMlp at 96x96;
+- the policy GRU's w_ih / w_hh / b_ih / b_hh are already in torch layout.
 """
 from __future__ import annotations
 
@@ -55,4 +57,35 @@ def arm_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
                        ("sound_triplet", flatten_perm(5, 1, 32))):
         _dense(sd, f"{head}.layers.0", params[head]["Dense_0"], perm)
         _dense(sd, f"{head}.layers.1", params[head]["Dense_1"])
+    return sd
+
+
+def arm_policy_state_dict(params: Mapping, img_dim=(3, 96, 96)
+                          ) -> Dict[str, torch.Tensor]:
+    """var_tpu arm Policy params -> var_tpu_torch Policy.state_dict()."""
+    from var_tpu_torch.models.policy import conv_grid
+
+    base = params["base"]
+    sd: Dict[str, torch.Tensor] = {}
+    n_convs = sum(1 for k in base if k.startswith("Conv_"))
+    for i in range(n_convs):
+        _conv(sd, f"base.convs.{i}", base[f"Conv_{i}"])
+    c, h, w = conv_grid(img_dim)
+    for name in base:
+        if name.startswith("Conv_") or name == "gru":
+            continue
+        prefix, _, idx = name.rpartition("_")
+        if name == "critic_linear":
+            key = "base.critic_linear"
+        else:
+            key = f"base.{prefix}.{idx}"
+        perm = flatten_perm(h, w, c) if name == "cnnMlp_0" else None
+        _dense(sd, key, base[name], perm)
+    if "gru" in base:
+        for k in ("w_ih", "w_hh", "b_ih", "b_hh"):
+            sd[f"base.gru.{k}"] = _tensor(base["gru"][k])
+    head = params["dist_head"]
+    _dense(sd, "dist_head.linear", head["Dense_0"])
+    if "logstd" in head:
+        sd["dist_head.logstd"] = _tensor(head["logstd"])
     return sd

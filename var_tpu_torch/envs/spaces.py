@@ -1,12 +1,13 @@
 """Minimal observation/action space types (gym is not a dependency).
 
-The subset of var_tpu/envs/spaces.py the arm sims and the vec env use: Box
-and Dict descriptors of shape and dtype.
+The subset of var_tpu/envs/spaces.py the arm sims, the vec env and the
+policy heads use: Box, Discrete, MultiBinary and Dict descriptors of shape
+and dtype.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Tuple
 
 import numpy as np
@@ -31,6 +32,27 @@ class Box:
 
     def __repr__(self):
         return f"Box(shape={self.shape}, dtype={np.dtype(self.dtype).name})"
+
+
+@dataclass
+class Discrete:
+    """n actions (the categorical policy head)."""
+
+    n: int
+    shape: Tuple[int, ...] = field(default=(), init=False)
+    dtype: np.dtype = field(default=np.int64, init=False)
+
+
+@dataclass
+class MultiBinary:
+    """n independent {0,1} flags (the Bernoulli policy head)."""
+
+    n: int
+    shape: Tuple[int, ...] = field(default=None, init=False)
+    dtype: np.dtype = field(default=np.int8, init=False)
+
+    def __post_init__(self):
+        self.shape = (self.n,)
 
 
 class DictSpace:

@@ -30,7 +30,9 @@ def make_vec_envs(env_name: str, seed: int, num_processes: int, gamma,
     to it for num_processes > 1. Each env is still seeded seed + rank, so
     the observations are those the JAX package's shmem workers give; only
     the parallelism is missing. 'shmem' raises. randomCollect=False needs
-    the frozen-VAR reward wrapper of the RL slice and raises too."""
+    the frozen-VAR reward wrapper and raises too; the fused RL path builds
+    its envs with randomCollect=True and computes the reward on the device
+    (rl/rollout_device.py)."""
     backend = getattr(config, "vecEnvBackend", "auto")
     if backend == "shmem":
         raise NotImplementedError(
@@ -40,7 +42,8 @@ def make_vec_envs(env_name: str, seed: int, num_processes: int, gamma,
     if not randomCollect:
         raise NotImplementedError(
             "make_vec_envs(randomCollect=False) needs the VAR reward "
-            "wrapper of the RL slice, which is not ported yet")
+            "wrapper, which is not ported yet (ROADMAP 'Modules left to "
+            "port', item 2: the reward-wrapper path)")
     del gamma  # used only by the VAR reward wrapper
     thunks = [make_env_thunk(env_name, seed, i) for i in range(num_processes)]
     if audio is None:

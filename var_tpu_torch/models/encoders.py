@@ -22,6 +22,23 @@ import torch.nn.functional as F
 from var_tpu_torch.ops.losses import l2_normalize
 
 
+@torch.no_grad()
+def flax_default_init_(module: nn.Module,
+                       generator: Optional[torch.Generator] = None):
+    """flax's defaults on every Conv2d and Linear of `module`: lecun_normal
+    kernels (truncated normal, variance 1/fan_in), zero biases."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()
+            # flax's truncated_normal rescales so the variance is exactly
+            # 1/fan_in after truncation at two std
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+            nn.init.zeros_(m.bias)
+    return module
+
+
 class ArmImageBranch(nn.Module):
     """5x (3x3 stride-2 conv + ReLU): (3,96,96) -> (64,3,3) -> flatten."""
 
@@ -81,20 +98,9 @@ class VARPretextNet(nn.Module):
         self.img_triplet = TripletHead(64 * 3 * 3, (128,), representation_dim)
         self.sound_triplet = TripletHead(32 * 5, (128,), representation_dim)
 
-    @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """flax defaults: lecun_normal kernels (truncated normal, variance
-        1/fan_in), zero biases."""
-        for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                fan_in = m.weight[0].numel()
-                # flax's truncated_normal rescales so the variance is
-                # exactly 1/fan_in after truncation at two std
-                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
-                nn.init.zeros_(m.bias)
-        return self
+        """flax defaults: lecun_normal kernels, zero biases."""
+        return flax_default_init_(self, generator)
 
     def encode_image(self, image):
         """image (B,3,96,96) in [0,1] -> (raw_feat, sphere_feat)."""
@@ -130,7 +136,7 @@ def _arm(config) -> VARPretextNet:
 def _ai2thor(config):
     raise NotImplementedError(
         "ai2thor_VARPretextNet (CRNN sound branch) is not ported yet "
-        "(ROADMAP 'Modules left to port', item 6: the ai2thor profile)")
+        "(ROADMAP 'Modules left to port', item 7: the ai2thor profile)")
 
 
 _MODEL_REGISTRY = {

@@ -1,0 +1,419 @@
+"""RL trainer: PPO outer loop, policy eval, checkpointing (port of
+var_tpu/train/rl.py, the fusedRollout path).
+
+Host sims in a vec env -> the fused device rollout (frozen-VAR encode, dot
+reward, return normalisation, recurrent policy act; one packed readback
+per env step) -> GAE -> the PPO update on the rollout buffers -> CSV
+progress and checkpoints; deterministic per-class evaluation through the
+same fused step, with the success-rate CSV.
+
+The other rollout modes of the JAX package wait for later slices and raise
+NotImplementedError naming their ROADMAP item ("Modules left to port"):
+the reward-wrapper path (fusedRollout=False), RLPipelinedRollout, the
+device-resident sims (RLDeviceSimRollout, RLDeviceSimEval), manual control
+and meshShape.
+"""
+from __future__ import annotations
+
+import csv
+import os
+import time
+from collections import deque
+from typing import Optional
+
+import numpy as np
+import torch
+
+from var_tpu_torch.config import gym_register
+from var_tpu_torch.device import resolve_device
+from var_tpu_torch.envs import spaces as S
+from var_tpu_torch.envs.vec.factory import make_vec_envs
+from var_tpu_torch.models.policy import build_policy
+from var_tpu_torch.rl.ppo import PPO, AdamState, PPOConfig, PPOState
+from var_tpu_torch.rl.rollout_device import DeviceRolloutEngine
+from var_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from var_tpu_torch.train.pretext import PretextTrainer
+from var_tpu_torch.utils.logging import CSVLogger
+from var_tpu_torch.utils.profiling import PhaseTimer, RSSWatchdog
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP 'Modules left to port', {item})")
+
+
+class RLTrainer:
+    """Runs on CUDA unless `device` names another device; asking for CUDA
+    where there is none raises."""
+
+    def __init__(self, config, env: Optional[str] = None, device=None):
+        self.config = config
+        gym_register(config, env=env)
+        self.device = resolve_device(device)
+        self.pretextObj = PretextTrainer(config, device=self.device)
+        self.pretext_model = None
+        self.policy = None
+        self.ppo: Optional[PPO] = None
+        self.state: Optional[PPOState] = None
+        # action noise and PPO permutations
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            int(config.RLEnvSeed))
+        self.timer = PhaseTimer()
+        self._watchdog = RSSWatchdog()
+        # (env steps, seconds) of each PPO update (rollout + update) of the
+        # last trainRL; each ends at the update's metrics read
+        self.update_stats = []
+
+    # -- frozen VAR ---------------------------------------------------------
+
+    def load_pretext(self, path: Optional[str] = None):
+        """The port's pretext checkpoint (a save directory: its newest)."""
+        model = self.pretextObj.loadPretextModel(path)
+        self.pretext_model = model.eval().requires_grad_(False)
+
+    # -- policy persistence (reference: RL.py:40-71,209-216) ----------------
+
+    def save_policy(self, label):
+        """<RLModelSaveDir>/<label>/checkpoint.pt: params, Adam state, step."""
+        path = os.path.join(self.config.RLModelSaveDir, label)
+        adam = self.state.opt_state
+        save_checkpoint(path, {
+            "params": self.policy.state_dict(),
+            "opt_state": {"count": adam.count, "mu": adam.mu, "nu": adam.nu},
+            "step": self.state.step})
+        return path
+
+    def load_policy_params(self, path):
+        return load_checkpoint(path)["params"]
+
+    def load_policy_state(self, path):
+        """(params, opt_state | None, step | None): the full training
+        state, so a fine-tune run continues Adam's moments and the update
+        counter (the reference reloads weights only, RL.py:62)."""
+        restored = load_checkpoint(path)
+        return (restored["params"], restored.get("opt_state"),
+                restored.get("step"))
+
+    def _resume_state(self, resume):
+        params, opt_state, step = resume
+        if params is not None:
+            self.policy.load_state_dict(params)
+        self.state = self.ppo.init_state()
+        if opt_state is None:
+            return
+        adam = self.state.opt_state
+        if set(opt_state["mu"]) != set(adam.mu):
+            raise ValueError(
+                "restored optimizer state does not match this policy's "
+                "parameters")
+        with torch.no_grad():
+            for k in adam.mu:
+                adam.mu[k].copy_(opt_state["mu"][k])
+                adam.nu[k].copy_(opt_state["nu"][k])
+        self.state = PPOState(
+            self.state.params,
+            AdamState(int(opt_state["count"]), adam.mu, adam.nu),
+            int(step) if step is not None else 0)
+
+    # -- the fused rollout ----------------------------------------------------
+
+    def _fused_envs(self, num_envs: int):
+        cfg = self.config
+        return make_vec_envs(
+            env_name=cfg.RLEnvName, seed=cfg.RLEnvSeed,
+            num_processes=num_envs, gamma=None, randomCollect=True,
+            config=cfg)
+
+    def _fused_engine(self, envs, raw_obs, num_steps: int, num_envs: int,
+                      deterministic: bool = False):
+        cfg = self.config
+        if cfg.name != "ArmConfig":
+            raise _not_ported("the ai2thor RL path", "item 7: the ai2thor "
+                              "profile")
+        if isinstance(envs.action_space, S.Discrete):
+            action_shape, action_dtype = (1,), torch.int32
+        else:
+            action_shape, action_dtype = envs.action_space.shape, torch.float32
+        return DeviceRolloutEngine(
+            self.pretext_model, self.policy, cfg, num_steps, num_envs,
+            "robot_pose", np.asarray(raw_obs["robot_pose"]).shape[1:],
+            torch.float32, action_shape, action_dtype, gamma=cfg.RLGamma,
+            deterministic=deterministic, generator=self.generator,
+            device=self.device)
+
+    def _build_policy(self, action_space):
+        """A fresh policy from RLEnvSeed, drawn on the CPU so every device
+        starts from the same weights."""
+        policy = build_policy(self.config, action_space)
+        policy.reset_parameters(
+            torch.Generator().manual_seed(int(self.config.RLEnvSeed)))
+        self.policy = policy.to(self.device)
+        return self.policy
+
+    def setup_fused(self):
+        """Everything _train_fused does before its loop: envs, policy (or
+        the fine-tune checkpoint), engine, PPO state, the first action."""
+        cfg = self.config
+        if self.pretext_model is None:
+            raise RuntimeError("load_pretext() first: the reward needs the "
+                               "frozen VAR")
+        T, N = cfg.ppoNumSteps, cfg.RLNumEnvs
+        envs = self._fused_envs(N)
+        self._build_policy(envs.action_space)
+        raw_obs = envs.reset()
+        engine = self._fused_engine(envs, raw_obs, T, N)
+        resume = (None, None, None)
+        if cfg.RLModelFineTune and os.path.exists(cfg.RLModelLoadDir):
+            print("Load the weights from", cfg.RLModelLoadDir)
+            resume = self.load_policy_state(cfg.RLModelLoadDir)
+        self.ppo = PPO(self.policy, PPOConfig.from_config(cfg))
+        self._resume_state(resume)
+        action = engine.init(raw_obs)
+        self.episode_rewards = deque(maxlen=10)
+        self.env_rewards = np.zeros(N)
+        return envs, engine, action
+
+    def rollout(self, envs, engine, action):
+        """T env steps through the fused engine; returns the next action."""
+        for step in range(engine.T):
+            with self.timer.phase("env_step"):
+                raw_obs, env_rew, done, infos = envs.step(action)
+            bad_masks = np.asarray(
+                [0.0 if "bad_transition" in info else 1.0 for info in infos],
+                np.float32)
+            with self.timer.phase("fused_step"):
+                action, raw_rew = engine.step(step, raw_obs, env_rew, done,
+                                              bad_masks)
+            self.env_rewards = self.env_rewards + raw_rew
+            for index in np.where(done)[0]:
+                self.episode_rewards.append(self.env_rewards[index])
+                self.env_rewards[index] = 0.0
+        return action
+
+    def update(self, engine):
+        """GAE, then one PPO update on the engine's buffers; returns the
+        metrics as floats."""
+        cfg = self.config
+        engine.compute_returns(cfg.ppoUseGAE, cfg.RLGamma, cfg.ppoGAELambda,
+                               cfg.RLUseProperTimeLimits)
+        with self.timer.phase("ppo_update"):
+            batch = engine.device_batch()
+            self.state, metrics = self.ppo.update(
+                self.state, batch, self.ppo.draw_perms(batch, self.generator))
+            # the update's one read: it waits for the device, so the phase
+            # times the update's device work too
+            values = torch.stack(list(metrics.values())).tolist()
+        engine.after_update()
+        return dict(zip(metrics, values))
+
+    # -- training (reference: RL.py:74-227 trainRL) ---------------------------
+
+    def trainRL(self, total_steps: Optional[int] = None,
+                log_interval: Optional[int] = None):
+        cfg = self.config
+        if getattr(cfg, "RLDeviceSimRollout", False):
+            raise _not_ported("RLDeviceSimRollout", "item 6: device-resident "
+                              "sims")
+        if not getattr(cfg, "fusedRollout", False):
+            raise _not_ported("fusedRollout=False (_train_wrapped)",
+                              "item 2: the reward-wrapper path")
+        if getattr(cfg, "RLPipelinedRollout", False):
+            raise _not_ported("RLPipelinedRollout", "item 3")
+        if getattr(cfg, "meshShape", None):
+            raise _not_ported("meshShape", "item 9: parallelism")
+        return self._train_fused(total_steps, log_interval)
+
+    def _train_fused(self, total_steps: Optional[int] = None,
+                     log_interval: Optional[int] = None):
+        """Device-resident rollout training: the fused step writes the
+        rollout into the engine's device buffers; the host reads back one
+        packed (action, raw reward) array per env step, and the PPO update
+        reads the buffers where they lie."""
+        cfg = self.config
+        total_steps = int(cfg.RLTotalSteps if total_steps is None
+                          else total_steps)
+        log_interval = (cfg.RLLogInterval if log_interval is None
+                        else log_interval)
+        os.makedirs(cfg.RLModelSaveDir, exist_ok=True)
+        cfg.save_json(os.path.join(cfg.RLModelSaveDir, "config.json"))
+
+        envs, engine, action = self.setup_fused()
+        T, N = engine.T, engine.N
+        # labels continue from the restored update counter, so a fine-tune
+        # run never leaves its base's higher-numbered checkpoint as latest
+        j0 = self.state.step
+        logger = CSVLogger(os.path.join(cfg.RLModelSaveDir, "progress.csv"))
+        start = time.time()
+        num_updates = total_steps // T // N
+        if num_updates == 0:
+            print(f"WARNING: RLTotalSteps={total_steps} < ppoNumSteps*"
+                  f"RLNumEnvs={T * N}: no PPO updates will run")
+        self.update_stats = []
+        for j in range(num_updates):
+            t0 = time.perf_counter()
+            action = self.rollout(envs, engine, action)
+            m = self.update(engine)
+            self.update_stats.append((T * N, time.perf_counter() - t0))
+
+            if (j % cfg.RLModelSaveInterval == 0 or j == num_updates - 1) \
+                    and cfg.RLModelSaveDir:
+                self.save_policy("%.5i" % (j0 + j))
+
+            episode_rewards = self.episode_rewards
+            if j % log_interval == 0 and len(episode_rewards) > 1:
+                total_num_steps = (j + 1) * N * T
+                fps = int(total_num_steps / (time.time() - start))
+                print(
+                    f"Updates {j}, num timesteps {total_num_steps}, FPS {fps}, "
+                    f"eprewmean {np.mean(episode_rewards):.2f}, "
+                    f"entropy {m['dist_entropy']:.3f}")
+                logger.log({
+                    "misc/nupdates": j,
+                    "misc/total_timesteps": total_num_steps,
+                    "fps": fps,
+                    "eprewmean": float(np.mean(episode_rewards)),
+                    "min": float(np.min(episode_rewards)),
+                    "max": float(np.max(episode_rewards)),
+                    "loss/policy_entropy": m["dist_entropy"],
+                    "loss/policy_loss": m["action_loss"],
+                    "loss/value_loss": m["value_loss"],
+                    "lr": self.ppo.current_lr(self.state),
+                    "perf/fused_step_ms": round(
+                        self.timer.p50_ms("fused_step"), 3),
+                    "perf/env_step_ms": round(
+                        self.timer.p50_ms("env_step"), 3),
+                    "perf/ppo_update_ms": round(
+                        self.timer.p50_ms("ppo_update"), 3),
+                    "perf/host_rss_gb": round(self._watchdog.check(), 2),
+                })
+        envs.close()
+        return self.state
+
+    # -- evaluation (reference: VAR/RL_VAR.py:12-76 testRL) --------------------
+
+    def testRL(self, num_episodes: Optional[int] = None,
+               policy_path: Optional[str] = None, num_envs: int = 1):
+        """Deterministic per-class evaluation through the fused step.
+
+        num_envs > 1 batches the evaluation: every env runs the same
+        per-class round-robin in lockstep, so N envs complete N same-class
+        episodes per cycle; totals and the CSV's objIdx column scale by N."""
+        cfg = self.config
+        if getattr(cfg, "RLDeviceSimEval", False):
+            raise _not_ported("RLDeviceSimEval", "item 6: device-resident "
+                              "sims")
+        if not getattr(cfg, "fusedRollout", False):
+            raise _not_ported("the wrapped testRL (fusedRollout=False)",
+                              "item 2: the reward-wrapper path")
+        return self._test_fused(num_episodes, policy_path, num_envs)
+
+    def _test_fused(self, num_episodes: Optional[int] = None,
+                    policy_path: Optional[str] = None, num_envs: int = 1):
+        """Raw envs + the engine in deterministic mode: per env step one
+        image upload, one small packed upload and ONE readback, the step
+        training uses with the distribution's mode instead of a sample."""
+        cfg = self.config
+        N = int(num_envs)
+        if self.pretext_model is None:
+            raise RuntimeError("load_pretext() first: the reward needs the "
+                               "frozen VAR")
+        envs = self._fused_envs(N)
+        path = policy_path or cfg.skillInfos[0]["path"]
+        if not os.path.exists(path):
+            # never score a random policy silently (the reference asserts
+            # here too, RL.py:42)
+            raise FileNotFoundError(
+                f"policy checkpoint {path!r} does not exist")
+        self._build_policy(envs.action_space)
+        raw_obs = envs.reset()
+        engine = self._fused_engine(envs, raw_obs, 1, N,
+                                    deterministic=bool(cfg.RLDeterministic))
+        engine.set_policy_params(self.load_policy_params(path))
+        print("Load the weights from", path)
+
+        size_per_class = _eval_size_per_class(cfg)
+        episode_num = int(np.sum(size_per_class)) * N
+        if num_episodes is not None:
+            episode_num = num_episodes
+
+        action = engine.init(raw_obs)
+        results, goal_counts, ep_rewards = [], [], []
+        eval_env_reward = np.zeros(N)
+        episodes = 0
+        while episodes < episode_num:
+            raw_obs, env_rew, done, infos = envs.step(action)
+            # the engine acts at the obs this step produced; the raw reward
+            # is the un-normalised VAR reward
+            action, raw_rew = engine.step(
+                0, raw_obs, np.asarray(env_rew, np.float32),
+                done.astype(np.float32), np.ones(N, np.float32))
+            eval_env_reward = eval_env_reward + raw_rew
+            for i in np.where(done)[0]:
+                if episodes >= episode_num:
+                    break
+                episodes += 1
+                gc = infos[i].get("goal_area_count", 0)
+                goal_counts.append(gc)
+                results.append(int(gc >= cfg.success_threshold))
+                ep_rewards.append(eval_env_reward[i])
+                eval_env_reward[i] = 0.0
+
+        success_rate = self._finish_eval(
+            path, results, goal_counts, ep_rewards, size_per_class, N)
+        envs.close()
+        return success_rate
+
+    def _finish_eval(self, path, results, goal_counts, ep_rewards,
+                     size_per_class, N):
+        """Success rate and the reference CSV schema, with the commanded
+        class per episode (VAR/RL_VAR.py:64-75: objIdx repeats over
+        size_per_class, as the round-robin eval intents do)."""
+        cfg = self.config
+        success_rate = float(np.mean(results)) if results else 0.0
+        if path is not None and not getattr(cfg, "render", False):
+            objs = np.repeat(np.arange(cfg.taskNum, dtype=np.int64),
+                             size_per_class * N)
+            reps = -(-len(results) // max(1, len(objs)))
+            objs = np.tile(objs, reps)[: len(results)]
+            save_dir = os.path.dirname(path)
+            os.makedirs(save_dir or ".", exist_ok=True)
+            name = os.path.splitext(os.path.basename(path))[0]
+            out = os.path.join(save_dir, f"test_{name}.csv")
+            with open(out, "w", newline="") as f:
+                writer = csv.writer(f)
+                writer.writerow(["objIdx", "goal area count", "rewards",
+                                 "results"])
+                writer.writerows(
+                    [int(o), int(g), float(r), int(s)] for o, g, r, s in
+                    zip(objs, goal_counts, ep_rewards, results))
+            print("results saved to", out)
+        print("success rate", success_rate)
+        return success_rate
+
+    # -- mode dispatch (reference: RL.py:251-284 run) ---------------------------
+
+    def run(self):
+        cfg = self.config
+        if cfg.RLManualControl:
+            raise _not_ported("manual control (RLManualControl)", "item 5")
+        self.load_pretext()
+        if cfg.RLTrain:
+            return self.trainRL()
+        return self.testRL()
+
+
+def _eval_size_per_class(cfg):
+    """Per-class eval episode quotas from the config, as the env computes
+    them (arm: summed sound-source test-set sizes, fourInARow.py:92-96;
+    grid: testEpisodesPerClass)."""
+    if hasattr(cfg, "testEpisodesPerClass"):
+        return np.full(cfg.taskNum, int(cfg.testEpisodesPerClass), np.int64)
+    sizes = getattr(cfg, "soundSource", {}).get("size", None)
+    if not sizes:
+        raise ValueError(
+            "cannot derive eval episode quotas: config has neither "
+            "testEpisodesPerClass nor soundSource['size']")
+    per = np.zeros(cfg.taskNum, np.int64)
+    for key in sizes:
+        per = per + np.asarray(sizes[key][: cfg.taskNum], np.int64)
+    return per
