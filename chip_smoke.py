@@ -41,7 +41,27 @@ Phases; any failure exits non-zero and no phase is skipped:
    parameters at the Adam-step tolerance stated there;
 10. where an RL update's time goes: torch.profiler over one 100-step
    rollout and over its PPO update: kernel launches per env step and per
-   update, the device's busy share of the wall, the ten longest kernels.
+   update, the device's busy share of the wall, the ten longest kernels;
+11. device-sim train: `python -m var_tpu_torch.rl`'s main with
+   RLDeviceSimRollout=True at full arm width with 64 envs (the arm E2E
+   recipe's) on phase 4's VAR: 3 PPO updates, each saved. Checks the
+   width, 3 checkpoints, finite losses, changed parameters and no
+   mel_log_dct launch; prints env-steps/s (median over updates 1-2), the
+   p50 of collect and ppo_update and the peak device memory;
+12. device-sim eval: RLDeviceSimEval on phase 11's last checkpoint, 64
+   envs, 1024 episodes (the E2E eval count): test_<ckpt>_devicesim.csv has
+   1024 rows, the success rate is in [0, 1]; prints episodes/s and
+   env-steps/s, set-up included;
+13. the device sim, card against CPU (var_tpu_torch/tools/rl_check.py):
+   one collect (8 envs x 10 steps, full width), one eval batch and one PPO
+   update from the same weights and draws: images, gripper poses, success
+   bits and counts equal, the rest at rtol = atol = 1e-4, parameters at
+   the Adam-step tolerance; render on the card against the host sim's
+   get_image at 1,000 seeded states, every pixel equal;
+14. where a device-sim update's time goes: torch.profiler over one
+   collect at 64 envs (GAE included) and over its PPO update, beside their
+   unprofiled wall times: kernel launches per env step and per update, the
+   device's busy share of each, the ten longest kernels.
 
 It then prints the card's name and power limit as nvidia-smi gives them,
 one JSON line with the kernels' numbers, and, last, one JSON line
@@ -368,10 +388,18 @@ def backend_agreement(torch, cfg):
     return trainer, ds, bank
 
 
+def _profiled_kernels(prof):
+    """Device-side kernel events only: the CPU ops that launched them, and
+    annotated ranges, carry the same time again."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+
+
 def breakdown(torch, trainer, ds, bank):
     """Phase 6: where one epoch's time goes (torch.profiler): the device's
     busy share of the wall time and the ops with the most device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     batch = trainer.config.pretextTrainBatchSize
@@ -387,11 +415,7 @@ def breakdown(torch, trainer, ds, bank):
         _, n = trainer._run_epoch_indexed(ds, bank, batch, epoch=3)
         torch.cuda.synchronize()
     steps = -(-n // batch)
-    # device-side kernel events only: the CPU ops that launched them, and
-    # annotated ranges such as Optimizer.step, carry the same time again
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not e.is_user_annotation]
+    kernels = _profiled_kernels(prof)
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     print(f"breakdown: device kernel time {device_ms:.4f} ms/step "
           f"(profiled epoch), wall {wall_ms:.4f} ms/step (unprofiled "
@@ -407,6 +431,8 @@ def breakdown(torch, trainer, ds, bank):
 
 RL_DIR = RUN_DIR / "rl_model"
 RL_UPDATES = 3
+# mel_log_dct launches on each path, each counted from 0 just before it
+LAUNCHES = {}
 
 
 def rl_train(torch, np, mld):
@@ -430,6 +456,7 @@ def rl_train(torch, np, mld):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = mld.mel_log_dct.launches
+    LAUNCHES["rl train"] = launches
     cfg = trainer.config
     width = (cfg.RLNumEnvs, cfg.ppoNumSteps, cfg.RLRecurrentSize,
              cfg.RLRecurrentInputSize, cfg.RLActionHiddenSize, cfg.ppoEpoch,
@@ -476,7 +503,7 @@ def rl_train(torch, np, mld):
     return trainer
 
 
-def rl_eval(torch, trainer):
+def rl_eval(torch, trainer, mld):
     """Phase 8: deterministic evaluation of phase 7's last checkpoint."""
     from var_tpu_torch.train.rl import RLTrainer
 
@@ -486,10 +513,12 @@ def rl_eval(torch, trainer):
     evaluator.load_pretext()
     path = RL_DIR / f"{RL_UPDATES - 1:05d}"
     n_envs, n_episodes = 8, 16
+    mld.mel_log_dct.launches = 0
     t0 = time.perf_counter()
     rate = evaluator.testRL(num_episodes=n_episodes, policy_path=str(path),
                             num_envs=n_envs)
     wall = time.perf_counter() - t0
+    LAUNCHES["rl eval"] = mld.mel_log_dct.launches
     with open(RL_DIR / f"test_{path.name}.csv") as f:
         rows = list(csv.DictReader(f))
     steps = -(-n_episodes // n_envs) * cfg.RLEnvMaxSteps * n_envs
@@ -519,7 +548,6 @@ def card_against_cpu_phase():
 def rl_breakdown(torch, config):
     """Phase 10: where one 100-step rollout and its PPO update spend their
     time (torch.profiler), beside their unprofiled wall time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from var_tpu_torch.train.rl import RLTrainer
@@ -552,22 +580,17 @@ def rl_breakdown(torch, config):
           f"included) {[round(w, 3) for w in walls['update'][1:]]}; GAE "
           f"alone {statistics.median(gae):.4f} ms", flush=True)
 
-    def kernels(prof):
-        return [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and not e.is_user_annotation]
-
     profiled = {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         action = trainer.rollout(envs, engine, action)
         torch.cuda.synchronize()
-    profiled["rollout"] = kernels(prof)
+    profiled["rollout"] = _profiled_kernels(prof)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         trainer.update(engine)
         torch.cuda.synchronize()
-    profiled["update"] = kernels(prof)
+    profiled["update"] = _profiled_kernels(prof)
     envs.close()
     if not all(profiled.values()):
         fail("torch.profiler recorded no device kernel")
@@ -597,6 +620,204 @@ def rl_breakdown(torch, config):
               f"x{n:<6d} {name[:90]}", flush=True)
 
 
+DS_DIR = RUN_DIR / "rl_devsim"
+DS_ENVS = 64  # the arm E2E recipe's RLNumEnvs (E2E_r05.json profiles.arms)
+DS_EPISODES = 1024  # the E2E device-eval episode count
+
+
+def devsim_train(torch, np, mld):
+    """Phase 11: device-sim training through the RL entry point at full
+    arm width with 64 envs."""
+    from var_tpu_torch.envs.spaces import Box
+    from var_tpu_torch.models.policy import build_policy
+    from var_tpu_torch.rl import main as rl_main
+    from var_tpu_torch.train.checkpoint import load_checkpoint
+
+    argv = [
+        "--env", "arms", "--set",
+        f'pretextModelLoadDir="{RUN_DIR / "model" / "4"}"',
+        f'RLModelSaveDir="{DS_DIR}"', "RLTrain=True", "RLModelFineTune=False",
+        "RLDeviceSimRollout=True", f"RLNumEnvs={DS_ENVS}",
+        f"RLTotalSteps={RL_UPDATES * DS_ENVS * 100}", "RLModelSaveInterval=1",
+        "RLLogInterval=1",
+    ]
+    torch.cuda.reset_peak_memory_stats()
+    mld.mel_log_dct.launches = 0
+    t0 = time.perf_counter()
+    trainer = rl_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    LAUNCHES["device-sim train"] = mld.mel_log_dct.launches
+    peak = torch.cuda.max_memory_allocated()
+    cfg = trainer.config
+    width = (cfg.RLNumEnvs, cfg.ppoNumSteps, cfg.RLRecurrentSize,
+             cfg.RLRecurrentInputSize, cfg.RLActionHiddenSize, cfg.ppoEpoch,
+             cfg.ppoNumMiniBatch, tuple(cfg.img_dim), cfg.representationDim)
+    print(f"device-sim train: {len(trainer.update_stats)} PPO updates at "
+          f"(envs, steps, GRU, GRU input, action hidden, epochs, minibatches, "
+          f"image, rep dim) = {width}; mel_log_dct launches "
+          f"{LAUNCHES['device-sim train']}; wall {wall:.2f} s; peak device "
+          f"memory {peak / 2 ** 30:.3f} GiB ({peak} bytes)", flush=True)
+    if width != (DS_ENVS, 100, 512, 128, 128, 4, 2, (3, 96, 96), 3):
+        fail("the device-sim phase did not run at full arm width")
+    if len(trainer.update_stats) != RL_UPDATES \
+            or LAUNCHES["device-sim train"] != 0:
+        fail("expected 3 PPO updates and no mel_log_dct launch")
+    labels = sorted(p.name for p in DS_DIR.iterdir() if p.name.isdigit())
+    if labels != [f"{j:05d}" for j in range(RL_UPDATES)]:
+        fail(f"expected {RL_UPDATES} checkpoints, found {labels}")
+    with open(DS_DIR / "progress.csv") as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r[k]) for r in rows
+              for k in ("loss/value_loss", "loss/policy_loss",
+                        "loss/policy_entropy")]
+    print(f"device-sim train: progress.csv {len(rows)} rows, losses {losses}",
+          flush=True)
+    if len(rows) != RL_UPDATES or not all(math.isfinite(v) for v in losses):
+        fail("bad device-sim losses in progress.csv")
+    start = build_policy(cfg, Box(-np.ones(2), np.ones(2))).reset_parameters(
+        torch.Generator().manual_seed(int(cfg.RLEnvSeed)))
+    final = load_checkpoint(str(DS_DIR / labels[-1]))["params"]
+    moved = max((final[k] - v).abs().max().item()
+                for k, v in start.state_dict().items())
+    print(f"device-sim train: largest parameter change {moved:.3e}",
+          flush=True)
+    if not moved > 0:
+        fail("the policy parameters did not change")
+    # update 0 holds the first-call set-up (cuDNN plans, allocator growth)
+    rates = [n / t for n, t in trainer.update_stats[1:]]
+    timer = trainer.timer
+    print(f"device-sim train: env-steps/s over updates 1-{len(rates)}: "
+          f"median {statistics.median(rates):.1f} (min {min(rates):.1f}, max "
+          f"{max(rates):.1f}); update seconds "
+          f"{[round(t, 5) for _, t in trainer.update_stats]}; p50 ms: "
+          f"collect (dispatch) {timer.p50_ms('collect'):.4f}, ppo_update "
+          f"(to the read) {timer.p50_ms('ppo_update'):.4f}", flush=True)
+    return trainer
+
+
+def devsim_eval(torch, trainer, mld):
+    """Phase 12: device-sim evaluation of phase 11's last checkpoint."""
+    from var_tpu_torch.train.rl import RLTrainer
+
+    cfg = copy.deepcopy(trainer.config)
+    cfg.override(RLTrain=False, RLDeviceSimEval=True)
+    path = DS_DIR / f"{RL_UPDATES - 1:05d}"
+    mld.mel_log_dct.launches = 0
+    t0 = time.perf_counter()
+    evaluator = RLTrainer(cfg, device="cuda")
+    evaluator.load_pretext()
+    rate = evaluator.testRL(num_episodes=DS_EPISODES, policy_path=str(path),
+                            num_envs=DS_ENVS)
+    wall = time.perf_counter() - t0
+    LAUNCHES["device-sim eval"] = mld.mel_log_dct.launches
+    with open(DS_DIR / f"test_{path.name}_devicesim.csv") as f:
+        rows = list(csv.DictReader(f))
+    steps = DS_EPISODES * cfg.RLEnvMaxSteps
+    print(f"device-sim eval: {len(rows)} episodes, success rate {rate}, "
+          f"{DS_EPISODES / wall:.1f} episodes/s, {steps / wall:.1f} "
+          f"env-steps/s ({wall:.3f} s, set-up included); mel_log_dct "
+          f"launches {LAUNCHES['device-sim eval']}", flush=True)
+    if len(rows) != DS_EPISODES or not 0.0 <= rate <= 1.0 \
+            or LAUNCHES["device-sim eval"] != 0:
+        fail("bad device-sim eval output")
+
+
+def devsim_card_against_cpu():
+    """Phase 13: the device sim on the card against the CPU."""
+    from var_tpu_torch.config import main_config
+    from var_tpu_torch.tools.rl_check import (device_sim_card_against_cpu,
+                                              render_card_against_host)
+
+    cfg = main_config(env="arms")
+    cfg.override(RLTrain=True, ppoNumSteps=10, RLEnvMaxSteps=10, RLNumEnvs=8)
+    t0 = time.perf_counter()
+    report = device_sim_card_against_cpu(cfg)
+    print(f"device sim, card vs cpu (8 envs x 10 steps, full width): "
+          f"{report} in {time.perf_counter() - t0:.2f} s", flush=True)
+    render = render_card_against_host(cfg, n=1000)
+    print(f"device sim, render on the card vs host get_image: {render}",
+          flush=True)
+    if not (report["ok"] and render["ok"]):
+        fail("the device sim differs between the card and the CPU")
+
+
+def devsim_breakdown(torch, config):
+    """Phase 14: where one device-sim collect and its PPO update spend
+    their time (torch.profiler), beside their unprofiled wall times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from var_tpu_torch.rl.device_sim import init_rms
+    from var_tpu_torch.train.rl import RLTrainer
+
+    cfg = copy.deepcopy(config)
+    trainer = RLTrainer(cfg, device="cuda")
+    trainer.load_pretext()
+    engine = trainer.setup_device_sim()
+    T = engine.T
+    rms = init_rms(engine.N, "cuda")
+
+    def update(batch):
+        state, metrics = trainer.ppo.update(
+            trainer.state, batch, trainer.ppo.draw_perms(batch,
+                                                         trainer.generator))
+        trainer.state = state
+        return torch.stack(list(metrics.values())).tolist()
+
+    walls = {"collect": [], "update": []}
+    for _ in range(3):  # the first is warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rms, batch, _ = engine.collect(rms)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        update(batch)
+        walls["collect"].append((t1 - t0) * 1e3)
+        walls["update"].append((time.perf_counter() - t1) * 1e3)
+    print(f"device-sim breakdown: unprofiled wall ms, collect of {T} steps x "
+          f"{engine.N} envs (GAE included) "
+          f"{[round(w, 3) for w in walls['collect'][1:]]}, PPO update "
+          f"{[round(w, 3) for w in walls['update'][1:]]}", flush=True)
+    profiled = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rms, batch, _ = engine.collect(rms)
+        torch.cuda.synchronize()
+    profiled["collect"] = _profiled_kernels(prof)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        update(batch)
+    profiled["update"] = _profiled_kernels(prof)
+    if not all(profiled.values()):
+        fail("torch.profiler recorded no device kernel")
+    total_dev = 0.0
+    for part, per in (("collect", T), ("update", 1)):
+        ks = profiled[part]
+        dev_ms = sum(e.self_device_time_total for e in ks) / 1e3
+        total_dev += dev_ms
+        wall = statistics.median(walls[part][1:])
+        unit = "env step" if part == "collect" else "PPO update"
+        print(f"device-sim breakdown: {part}: "
+              f"{sum(e.count for e in ks) / per:.1f} kernel launches per "
+              f"{unit}; device kernel time {dev_ms / per:.4f} ms per {unit}; "
+              f"busy {100 * dev_ms / wall:.1f}% of its unprofiled wall",
+              flush=True)
+    wall = statistics.median(walls["collect"][1:]) + statistics.median(
+        walls["update"][1:])
+    print(f"device-sim breakdown: collect + update: device busy "
+          f"{100 * total_dev / wall:.1f}% of {wall:.3f} ms wall; the update "
+          f"is {100 * statistics.median(walls['update'][1:]) / wall:.1f}% of "
+          f"the cycle", flush=True)
+    merged = {}
+    for ks in profiled.values():
+        for e in ks:
+            t, n = merged.get(e.key, (0.0, 0))
+            merged[e.key] = (t + e.self_device_time_total / 1e3, n + e.count)
+    for name, (ms, n) in sorted(merged.items(), key=lambda kv: -kv[1][0])[:10]:
+        print(f"device-sim breakdown:   {ms:9.4f} ms "
+              f"{100 * ms / total_dev:5.1f}% x{n:<6d} {name[:90]}", flush=True)
+
+
 def main():
     import torch
 
@@ -622,13 +843,20 @@ def main():
     kernel = check_mel_log_dct(torch, np, bw, flops)
     trainer, launches = run_slice(torch)
     kernel["launches"] = launches[kernel["name"]]
+    LAUNCHES["pretext"] = kernel["launches"]
     breakdown(torch, *backend_agreement(torch, trainer.config))
 
     rl_trainer = rl_train(torch, np, mld)
-    rl_eval(torch, rl_trainer)
+    rl_eval(torch, rl_trainer, mld)
     card_against_cpu_phase()
     rl_breakdown(torch, rl_trainer.config)
 
+    ds_trainer = devsim_train(torch, np, mld)
+    devsim_eval(torch, ds_trainer, mld)
+    devsim_card_against_cpu()
+    devsim_breakdown(torch, ds_trainer.config)
+
+    kernel["launches_by_path"] = dict(LAUNCHES)
     print(line)
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain versions, and the fused RL
-step and PPO update against the same on the CPU, on the card.
+"""The port's CUDA kernels against their plain versions, and the RL paths
+(the fused step, the device sim, the PPO update) against the same on the
+CPU, on the card.
 
 This file imports nothing of JAX or var_tpu, so that it also runs on a CUDA
 machine without JAX, where tests/conftest.py (which imports jax) is left
@@ -21,7 +22,9 @@ import torch
 from var_tpu_torch.config import main_config
 from var_tpu_torch.ops import audio
 from var_tpu_torch.ops import mel_log_dct as mld
-from var_tpu_torch.tools.rl_check import card_against_cpu
+from var_tpu_torch.tools.rl_check import (card_against_cpu,
+                                          device_sim_card_against_cpu,
+                                          render_card_against_host)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -110,6 +113,21 @@ def test_rl_step_and_update_agree_on_card_and_cpu(monkeypatch):
                  RLActionHiddenSize=32, vecEnvBackend="dummy", RLTrain=True)
     report = card_against_cpu(cfg)
     assert report["ok"], report
+
+
+@pytest.mark.cuda
+def test_device_sim_agrees_on_card_and_cpu(monkeypatch):
+    """chip_smoke.py phase 13 at reduced width: GRU 32, 4 envs, 6 steps;
+    render against the host sim at 200 states."""
+    _require_card("it holds the card against the CPU")
+    monkeypatch.setenv("VAR_TPU_SYNTH_CLIPS", "4")
+    cfg = main_config(env="arms")
+    cfg.override(RLNumEnvs=4, ppoNumSteps=6, RLEnvMaxSteps=6,
+                 RLRecurrentSize=32, RLRecurrentInputSize=16,
+                 RLActionHiddenSize=32, RLTrain=True)
+    report = device_sim_card_against_cpu(cfg)
+    assert report["ok"], report
+    assert render_card_against_host(cfg, n=200)["ok"]
 
 
 def test_build_without_nvcc_raises(monkeypatch):

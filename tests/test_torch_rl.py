@@ -334,7 +334,7 @@ def test_resume_continues_adam_state_and_labels(var_checkpoint):
 
 @pytest.mark.parametrize("knob,value", [
     ("fusedRollout", False), ("RLPipelinedRollout", True),
-    ("RLDeviceSimRollout", True), ("meshShape", {"dp": 2})])
+    ("meshShape", {"dp": 2})])
 def test_unported_modes_raise_naming_their_roadmap_item(knob, value):
     _, tcfg = _configs(RLTrain=True, **{knob: value})
     trainer = trl.RLTrainer(tcfg, device="cpu")

@@ -1,18 +1,30 @@
-"""The fused RL step and the PPO update on the card against the same on
-the CPU (chip_smoke.py phase 9; tests/test_torch_kernels.py at reduced
-width).
+"""The RL paths on the card against the same on the CPU (chip_smoke.py
+phases 9 and 13; tests/test_torch_kernels.py at reduced width).
 
-From the same VAR and policy weights, a `config.ppoNumSteps`-step rollout
-runs through a CUDA engine and a CPU engine over one host-env stream (the
-card's actions drive the envs), with the same Gaussian noise, drawn on the
-CPU. Each step's packed (action, raw reward) is compared, then the stored
-values, log-probs and normalised rewards. The card's buffers are then
-copied into the CPU engine, so that both update from the same batch: GAE
-and one PPO.update with the same permutations, whose losses and
-parameters are compared.
+card_against_cpu (the fused path): from the same VAR and policy weights, a
+`config.ppoNumSteps`-step rollout runs through a CUDA engine and a CPU
+engine over one host-env stream (the card's actions drive the envs), with
+the same Gaussian noise, drawn on the CPU. Each step's packed (action, raw
+reward) is compared, then the stored values, log-probs and normalised
+rewards. The card's buffers are then copied into the CPU engine, so that
+both update from the same batch: GAE and one PPO.update with the same
+permutations, whose losses and parameters are compared.
+
+device_sim_card_against_cpu (the device sim): one `collect` and one
+`eval_batch` on each side from the same weights and draws (made on the
+CPU). The comparison goes from the card to the CPU: the CPU engine applies
+the card's actions to its sim (the `actions` argument), as phase 9 drives
+the host envs with the card's actions, so that a last-bit difference in an
+action cannot flip a pixel and compound over the steps. Images and
+gripper poses must then be equal; everything else agrees within the
+tolerances below. Both sides then run one PPO.update of the card's batch
+with the same permutations. render_card_against_host holds the card's
+render against the host sim's get_image at seeded states, every pixel.
 
 Tolerances: rtol = atol = 1e-4 for everything but the parameters (IEEE
-float32 on both devices, only the order of summation differs). Parameters
+float32 on both devices, only the order of summation differs: both checks
+pin the precision through device.resolve_device, since cuDNN's default
+TF32 convolutions alone miss 1e-4). Parameters
 after the update: within 2 * lr per optimizer step + 5e-5, with a median
 difference below 1e-6, as tests/test_torch_pretext.py holds an Adam step:
 Adam moves each weight by about +-lr whatever the size of its gradient, so
@@ -42,6 +54,7 @@ def card_against_cpu(config, seed: int = 0, card: str = "cuda") -> dict:
     the device held against the CPU (the CPU itself rehearses the check
     where there is no card)."""
     from var_tpu_torch.config import gym_register
+    from var_tpu_torch.device import resolve_device
     from var_tpu_torch.envs.vec.factory import make_vec_envs
     from var_tpu_torch.models.encoders import VARPretextNet
     from var_tpu_torch.models.policy import build_policy
@@ -49,6 +62,7 @@ def card_against_cpu(config, seed: int = 0, card: str = "cuda") -> dict:
     from var_tpu_torch.rl.rollout_device import DeviceRolloutEngine
 
     cfg = config
+    resolve_device(card)
     T, N = cfg.ppoNumSteps, cfg.RLNumEnvs
     gym_register(cfg)
     envs = make_vec_envs(cfg.RLEnvName, cfg.RLEnvSeed, N, None, True, cfg)
@@ -97,22 +111,32 @@ def card_against_cpu(config, seed: int = 0, card: str = "cuda") -> dict:
     with torch.no_grad():
         for name, x in dev_buf.as_dict().items():
             getattr(host, name).copy_(x.cpu())
-    updates = []  # (metrics, params, returns): the card, then the CPU
-    perms = None
-    for dev, engine, ppo in sides:
+    batches = []
+    for _, engine, _ in sides:
         engine.compute_returns(cfg.ppoUseGAE, cfg.RLGamma, cfg.ppoGAELambda,
                                cfg.RLUseProperTimeLimits)
-        batch = engine.device_batch()
+        batches.append(engine.device_batch())
+    errs["returns"] = _err(batches[1]["returns"], batches[0]["returns"].cpu())
+    return _update_report(cfg, [(s[2], b) for s, b in zip(sides, batches)],
+                          card, seed, errs)
+
+
+def _update_report(cfg, sides, card, seed, errs) -> dict:
+    """One PPO.update from a fresh state on each side, `sides` being
+    (ppo, batch) pairs with the card's first, with the same permutations.
+    Adds the worst loss error to `errs`; returns the report with `ok`."""
+    updates = []  # (metrics, params): the card, then the CPU
+    perms = None
+    for ppo, batch in sides:
         if perms is None:
             perms = ppo.draw_perms(batch, torch.Generator(device=card)
                                    .manual_seed(seed + 3))
-        state, metrics = ppo.update(ppo.init_state(), batch, perms.to(dev))
+        state, metrics = ppo.update(ppo.init_state(), batch,
+                                    perms.to(batch["returns"].device))
         updates.append((
             {k: float(v) for k, v in metrics.items()},
-            {k: v.detach().cpu() for k, v in state.params.items()},
-            engine.device_batch()["returns"].cpu()))
-    (d_metrics, d_params, d_ret), (c_metrics, c_params, c_ret) = updates
-    errs["returns"] = _err(c_ret, d_ret)
+            {k: v.detach().cpu() for k, v in state.params.items()}))
+    (d_metrics, d_params), (c_metrics, c_params) = updates
     errs["losses"] = max(_err(c_metrics[k], v) for k, v in d_metrics.items())
     n_opt = cfg.ppoEpoch * cfg.ppoNumMiniBatch
     atol = 2 * cfg.RLLr * n_opt + 5e-5
@@ -125,3 +149,119 @@ def card_against_cpu(config, seed: int = 0, card: str = "cuda") -> dict:
                     and report["param_max_diff"] <= atol
                     and report["param_median_diff"] < 1e-6)
     return report
+
+
+def _to(draws, device):
+    """A draws tuple (nested NamedTuples of tensors) on `device`."""
+    return type(draws)(*(
+        None if x is None else
+        _to(x, device) if isinstance(x, tuple) else x.to(device)
+        for x in draws))
+
+
+def device_sim_card_against_cpu(config, seed: int = 0, card: str = "cuda",
+                                audio=None) -> dict:
+    """The device-sim comparison (see the module docstring): returns the
+    worst errors in units of the tolerance, the count of image pixels and
+    gripper coordinates that differ, the success bits that differ, the
+    parameter differences and `ok`. `audio` (an AudioStore) is shared by
+    both engines when given."""
+    from var_tpu_torch.data.audio_store import AudioStore
+    from var_tpu_torch.device import resolve_device
+    from var_tpu_torch.envs.spaces import Box
+    from var_tpu_torch.models.encoders import VARPretextNet
+    from var_tpu_torch.models.policy import build_policy
+    from var_tpu_torch.rl.device_sim import DeviceSimEngine, init_rms
+    from var_tpu_torch.rl.ppo import PPO, PPOConfig
+
+    cfg = config
+    resolve_device(card)
+    T, N = cfg.ppoNumSteps, cfg.RLNumEnvs
+    if audio is None:
+        audio = AudioStore(cfg)
+        audio.loadData()
+    var = VARPretextNet(cfg.representationDim).reset_parameters(
+        torch.Generator().manual_seed(seed)).eval().requires_grad_(False)
+    high = np.ones(cfg.RLActionDim, np.float32)
+    policy = build_policy(cfg, Box(-high, high)).reset_parameters(
+        torch.Generator().manual_seed(seed + 1))
+    sides = []  # (engine, ppo): the card, then the CPU
+    for dev in (card, "cpu"):
+        pol = copy.deepcopy(policy).to(dev)
+        engine = DeviceSimEngine(
+            copy.deepcopy(var).to(dev), pol, cfg, T, N, audio=audio,
+            generator=torch.Generator(device=dev).manual_seed(seed + 2),
+            device=dev)
+        sides.append((engine, PPO(pol, PPOConfig.from_config(cfg))))
+    (d_eng, _), (c_eng, _) = sides
+
+    # draws made on the CPU, the same on both sides
+    draws = c_eng.draw_collect()
+    d_rms, d_batch, d_raw = d_eng.collect(init_rms(N, card), _to(draws, card))
+    c_rms, c_batch, c_raw = c_eng.collect(
+        init_rms(N), draws, actions=d_batch["actions"].cpu())
+    mismatch = {
+        "pixels": int((c_batch["obs"]["image"]
+                       != d_batch["obs"]["image"].cpu()).sum()),
+        "poses": int((c_batch["obs"]["robot_pose"]
+                      != d_batch["obs"]["robot_pose"].cpu()).sum())}
+    errs = {"image_feats": _err(c_batch["obs"]["image_feat"],
+                                d_batch["obs"]["image_feat"].cpu())}
+    for key in ("value_preds", "old_log_probs", "returns"):
+        errs[key] = _err(c_batch[key], d_batch[key].cpu())
+    errs["rewards"] = _err(c_eng.rewards, d_eng.rewards.cpu())
+    errs["rms"] = max(_err(c, d.cpu()) for c, d in zip(c_rms, d_rms))
+    errs["episode_rewards"] = _err(c_raw, d_raw.cpu())
+
+    intent = torch.arange(N) % cfg.taskNum
+    edraws = c_eng.draw_eval()
+    d_succ, d_counts, d_sum = d_eng.eval_batch(intent.to(card),
+                                               _to(edraws, card))
+    c_succ, c_counts, c_sum = c_eng.eval_batch(
+        intent, edraws, actions=d_eng.eval_actions.cpu())
+    mismatch["success"] = int((c_succ != d_succ.cpu()).sum()
+                              + (c_counts != d_counts.cpu()).sum())
+    errs["eval_actions"] = _err(c_eng.eval_actions, d_eng.eval_actions.cpu())
+    errs["eval_rewards"] = _err(c_sum, d_sum.cpu())
+
+    # one update of the card's batch on both sides
+    c_batch = {"obs": {k: v.cpu() for k, v in d_batch["obs"].items()},
+               **{k: v.cpu() for k, v in d_batch.items() if k != "obs"}}
+    report = _update_report(cfg, [(sides[0][1], d_batch),
+                                  (sides[1][1], c_batch)], card, seed, errs)
+    report.update(mismatch, successes=int(d_succ.sum()))
+    report["ok"] = report["ok"] and not any(mismatch.values())
+    return report
+
+
+def render_card_against_host(config, n: int = 1000, seed: int = 0,
+                             card: str = "cuda") -> dict:
+    """`render_chw` on the card against FourInARowSim.get_image at `n`
+    seeded states (the host sim's own reset, the gripper uniform over the
+    workspace): the count of states with any pixel that differs."""
+    from var_tpu_torch.envs import arm_sim_device as sim
+    from var_tpu_torch.envs.arm_sim import FourInARowSim
+
+    cfg = config
+    host = FourInARowSim(cfg)
+    host.seed(seed)
+    rng = np.random.RandomState(seed + 1)
+    poses, ees = [], []
+    for _ in range(n):
+        host._randomize()
+        host.ee = np.array([rng.uniform(cfg.xMin, cfg.xMax),
+                            rng.uniform(cfg.yMin, cfg.yMax)])
+        poses.append(host.objPose.copy())
+        ees.append(host.ee.copy())
+    poses = np.asarray(poses, np.float32)
+    ees = np.asarray(ees, np.float32)
+    imgs = sim.render_chw(torch.from_numpy(poses).to(card),
+                          torch.from_numpy(ees).to(card),
+                          sim.consts_from_config(cfg)).cpu().numpy()
+    bad = 0
+    for i in range(n):
+        host.objPose = poses[i].astype(np.float64)
+        host.ee = ees[i].astype(np.float64)
+        bad += bool((np.transpose(host.get_image(), (2, 0, 1))
+                     != imgs[i]).any())
+    return {"states": n, "states_differing": bad, "ok": bad == 0}

@@ -1,17 +1,19 @@
 """RL trainer: PPO outer loop, policy eval, checkpointing (port of
-var_tpu/train/rl.py, the fusedRollout path).
+var_tpu/train/rl.py: the fusedRollout and the device-sim paths).
 
-Host sims in a vec env -> the fused device rollout (frozen-VAR encode, dot
-reward, return normalisation, recurrent policy act; one packed readback
-per env step) -> GAE -> the PPO update on the rollout buffers -> CSV
-progress and checkpoints; deterministic per-class evaluation through the
-same fused step, with the success-rate CSV.
+- fusedRollout: host sims in a vec env -> the fused device rollout
+  (frozen-VAR encode, dot reward, return normalisation, recurrent policy
+  act; one packed readback per env step) -> GAE -> the PPO update on the
+  rollout buffers; deterministic per-class evaluation through the same
+  fused step;
+- RLDeviceSimRollout / RLDeviceSimEval: the arm sim itself on the device
+  (rl/device_sim.py), one small read per PPO update or per evaluation;
+- CSV progress, checkpoints and the success-rate CSV for both.
 
-The other rollout modes of the JAX package wait for later slices and raise
+The other modes of the JAX package wait for later slices and raise
 NotImplementedError naming their ROADMAP item ("Modules left to port"):
-the reward-wrapper path (fusedRollout=False), RLPipelinedRollout, the
-device-resident sims (RLDeviceSimRollout, RLDeviceSimEval), manual control
-and meshShape.
+the reward-wrapper path (fusedRollout=False), RLPipelinedRollout, manual
+control and meshShape.
 """
 from __future__ import annotations
 
@@ -211,17 +213,125 @@ class RLTrainer:
     def trainRL(self, total_steps: Optional[int] = None,
                 log_interval: Optional[int] = None):
         cfg = self.config
+        if getattr(cfg, "meshShape", None):
+            raise _not_ported("meshShape", "item 9: parallelism")
         if getattr(cfg, "RLDeviceSimRollout", False):
-            raise _not_ported("RLDeviceSimRollout", "item 6: device-resident "
-                              "sims")
+            return self._train_device_sim(total_steps, log_interval)
         if not getattr(cfg, "fusedRollout", False):
             raise _not_ported("fusedRollout=False (_train_wrapped)",
                               "item 2: the reward-wrapper path")
         if getattr(cfg, "RLPipelinedRollout", False):
             raise _not_ported("RLPipelinedRollout", "item 3")
-        if getattr(cfg, "meshShape", None):
-            raise _not_ported("meshShape", "item 9: parallelism")
         return self._train_fused(total_steps, log_interval)
+
+    def _arm_action_space(self):
+        if self.config.name != "ArmConfig":
+            raise _not_ported("the grid device sim", "item 7: the ai2thor "
+                              "profile")
+        high = np.ones(self.config.RLActionDim, np.float32)
+        return S.Box(-high, high, dtype=np.float32)
+
+    def setup_device_sim(self):
+        """Everything _train_device_sim does before its loop: the policy
+        from RLEnvSeed (or the fine-tune checkpoint), the engine, the PPO
+        state. Returns the engine."""
+        from var_tpu_torch.rl.device_sim import DeviceSimEngine
+
+        cfg = self.config
+        if cfg.ppoNumSteps != cfg.RLEnvMaxSteps:
+            raise ValueError(
+                "RLDeviceSimRollout requires ppoNumSteps == RLEnvMaxSteps "
+                "(one rollout == one episode, the builtin-sim alignment); "
+                f"got {cfg.ppoNumSteps} != {cfg.RLEnvMaxSteps}")
+        if self.pretext_model is None:
+            raise RuntimeError("load_pretext() first: the reward needs the "
+                               "frozen VAR")
+        self._build_policy(self._arm_action_space())
+        engine = DeviceSimEngine(
+            self.pretext_model, self.policy, cfg, cfg.ppoNumSteps,
+            cfg.RLNumEnvs, generator=self.generator, device=self.device)
+        resume = (None, None, None)
+        if cfg.RLModelFineTune and os.path.exists(cfg.RLModelLoadDir):
+            print("Load the weights from", cfg.RLModelLoadDir)
+            resume = self.load_policy_state(cfg.RLModelLoadDir)
+        self.ppo = PPO(self.policy, PPOConfig.from_config(cfg))
+        self._resume_state(resume)
+        return engine
+
+    def _train_device_sim(self, total_steps: Optional[int] = None,
+                          log_interval: Optional[int] = None):
+        """Training with the simulator on the device (rl/device_sim.py):
+        reset -> T-step rollout -> GAE, then the PPO update, with no host
+        round trip inside either. The host makes one small read per update,
+        the episode raw rewards and the update's metrics together, at its
+        end. So the `collect` phase times the rollout's dispatch only (the
+        host waits inside it only when the launch queue is full), and the
+        `ppo_update` phase ends at the read: it holds the rollout's device
+        work that was still queued, and the update's. update_stats keeps
+        (env steps, seconds) of each update, rollout included, each ending
+        at that read."""
+        from var_tpu_torch.rl.device_sim import init_rms
+
+        cfg = self.config
+        total_steps = int(cfg.RLTotalSteps if total_steps is None
+                          else total_steps)
+        log_interval = (cfg.RLLogInterval if log_interval is None
+                        else log_interval)
+        engine = self.setup_device_sim()
+        os.makedirs(cfg.RLModelSaveDir, exist_ok=True)
+        cfg.save_json(os.path.join(cfg.RLModelSaveDir, "config.json"))
+        T, N = engine.T, engine.N
+        # labels continue from the restored update counter, so a fine-tune
+        # run never leaves its base's higher-numbered checkpoint as latest
+        j0 = self.state.step
+        rms = init_rms(N, self.device)
+        episode_rewards = deque(maxlen=10)
+        logger = CSVLogger(os.path.join(cfg.RLModelSaveDir, "progress.csv"))
+        start = time.time()
+        num_updates = total_steps // T // N
+        self.update_stats = []
+        for j in range(num_updates):
+            t0 = time.perf_counter()
+            with self.timer.phase("collect"):
+                rms, batch, ep_raw = engine.collect(rms)
+            with self.timer.phase("ppo_update"):
+                self.state, metrics = self.ppo.update(
+                    self.state, batch,
+                    self.ppo.draw_perms(batch, self.generator))
+                host = torch.cat([ep_raw, torch.stack(list(metrics.values()))
+                                  ]).tolist()
+            self.update_stats.append((T * N, time.perf_counter() - t0))
+            episode_rewards.extend(host[:N])
+            m = dict(zip(metrics, host[N:]))
+
+            if (j % cfg.RLModelSaveInterval == 0 or j == num_updates - 1) \
+                    and cfg.RLModelSaveDir:
+                self.save_policy("%.5i" % (j0 + j))
+            if j % log_interval == 0 and len(episode_rewards) > 1:
+                total_num_steps = (j + 1) * N * T
+                fps = int(total_num_steps / (time.time() - start))
+                print(
+                    f"Updates {j}, num timesteps {total_num_steps}, FPS {fps}, "
+                    f"eprewmean {np.mean(episode_rewards):.2f}, "
+                    f"entropy {m['dist_entropy']:.3f}")
+                logger.log({
+                    "misc/nupdates": j,
+                    "misc/total_timesteps": total_num_steps,
+                    "fps": fps,
+                    "eprewmean": float(np.mean(episode_rewards)),
+                    "min": float(np.min(episode_rewards)),
+                    "max": float(np.max(episode_rewards)),
+                    "loss/policy_entropy": m["dist_entropy"],
+                    "loss/policy_loss": m["action_loss"],
+                    "loss/value_loss": m["value_loss"],
+                    "lr": self.ppo.current_lr(self.state),
+                    "perf/collect_ms": round(
+                        self.timer.p50_ms("collect"), 3),
+                    "perf/ppo_update_ms": round(
+                        self.timer.p50_ms("ppo_update"), 3),
+                    "perf/host_rss_gb": round(self._watchdog.check(), 2),
+                })
+        return self.state
 
     def _train_fused(self, total_steps: Optional[int] = None,
                      log_interval: Optional[int] = None):
@@ -300,8 +410,15 @@ class RLTrainer:
         episodes per cycle; totals and the CSV's objIdx column scale by N."""
         cfg = self.config
         if getattr(cfg, "RLDeviceSimEval", False):
-            raise _not_ported("RLDeviceSimEval", "item 6: device-resident "
-                              "sims")
+            if getattr(cfg, "simBackend", "builtin") != "builtin":
+                # the device evaluator runs the BUILTIN sim; scoring it while
+                # the config asks for an external adapter would report
+                # success on another simulator than configured
+                raise ValueError(
+                    "RLDeviceSimEval requires simBackend='builtin' "
+                    f"(got {cfg.simBackend!r}); use the host testRL path "
+                    "for adapter-backed environments")
+            return self._test_device_sim(num_episodes, policy_path, num_envs)
         if not getattr(cfg, "fusedRollout", False):
             raise _not_ported("the wrapped testRL (fusedRollout=False)",
                               "item 2: the reward-wrapper path")
@@ -362,6 +479,70 @@ class RLTrainer:
             path, results, goal_counts, ep_rewards, size_per_class, N)
         envs.close()
         return success_rate
+
+    def device_eval_engine(self, num_envs: int):
+        """The device evaluator (policy net + sim engine) for batches of
+        `num_envs` episodes; one engine evaluates any number of
+        checkpoints (load each into self.policy)."""
+        from var_tpu_torch.rl.device_sim import DeviceSimEngine
+
+        if self.pretext_model is None:
+            raise RuntimeError("load_pretext() first: the reward needs the "
+                               "frozen VAR")
+        self._build_policy(self._arm_action_space())
+        # the eval draws' own stream, as the JAX package's PRNGKey(1)
+        generator = torch.Generator(device=self.device).manual_seed(1)
+        return DeviceSimEngine(
+            self.pretext_model, self.policy, self.config,
+            int(self.config.RLEnvMaxSteps), int(num_envs),
+            generator=generator, device=self.device)
+
+    def _test_device_sim(self, num_episodes: Optional[int] = None,
+                         policy_path: Optional[str] = None,
+                         num_envs: int = 1):
+        """Deterministic evaluation on the device sim: one eval_batch per
+        round-robin slot, all `num_envs` envs commanded the same class,
+        per-class quotas as the host testRL derives them; the results are
+        read once, after the last batch. The CSV is
+        test_<ckpt>_devicesim.csv, so host-evaluated results stay apart
+        (reference VAR/RL_VAR.py:35-75)."""
+        cfg = self.config
+        N = int(num_envs)
+        path = policy_path or cfg.skillInfos[0]["path"]
+        if not os.path.exists(path):
+            # never score a random policy silently (RL.py:42)
+            raise FileNotFoundError(
+                f"policy checkpoint {path!r} does not exist")
+        engine = self.device_eval_engine(N)
+        self.policy.load_state_dict(self.load_policy_params(path))
+        print("Load the weights from", path)
+
+        size_per_class = _eval_size_per_class(cfg)
+        class_seq = np.repeat(np.arange(cfg.taskNum), size_per_class)
+        if num_episodes is not None:
+            n_batches = -(-int(num_episodes) // N)
+            class_seq = np.tile(class_seq, -(-n_batches //
+                                             max(1, len(class_seq))))
+            class_seq = class_seq[:n_batches]
+
+        outs = []
+        for c in class_seq:
+            intent = torch.full((N,), int(c), dtype=torch.int64,
+                                device=self.device)
+            success, counts, raw = engine.eval_batch(intent)
+            outs.append(torch.stack([success.float(), counts.float(), raw]))
+        results, goal_counts, ep_rewards = (
+            torch.cat(outs, 1).tolist() if outs else ([], [], []))
+        results = [int(r) for r in results]
+        goal_counts = [int(g) for g in goal_counts]
+        if num_episodes is not None:
+            results = results[:num_episodes]
+            goal_counts = goal_counts[:num_episodes]
+            ep_rewards = ep_rewards[:num_episodes]
+        return self._finish_eval(
+            os.path.join(os.path.dirname(path),
+                         os.path.basename(path) + "_devicesim"),
+            results, goal_counts, ep_rewards, size_per_class, N)
 
     def _finish_eval(self, path, results, goal_counts, ep_rewards,
                      size_per_class, N):
