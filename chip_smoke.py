@@ -7,14 +7,16 @@ Phases; any failure exits non-zero and no phase is skipped:
 1. card: CUDA must be present; prints the precision flags;
 2. build: compiles every kernel of the pretext path from var_tpu_torch/csrc
    with nvcc (sm_90a) and prints the build time;
-3. each kernel against its plain PyTorch version on the card, at the main
-   path's shape and two other shapes the repo's configs give, in both input
-   layouts (the gemm STFT's view, contiguous), at rtol = atol = 1e-4, with
-   NaN and inf rows; then its times (CUDA events, queued behind a spin
-   kernel so that the host's launch overhead stays out): cold, rotating
-   over > 100 MB of inputs so each call reads device memory, and warm, one
-   input back to back as on the path; the wrapper's host time per call;
-   the plain version's times beside them, and the card's bound;
+3. each kernel against its plain PyTorch version on the card, at the arm
+   path's shape (128, 101, 257), the ai2thor path's (128, 601, 257), the
+   pos + neg batch (256, 601, 257), a short last unit (8, 601, 257) and
+   the n_fft-1024 presets, in both input layouts (the gemm STFT's view,
+   contiguous), at rtol = atol = 1e-4, with NaN and inf rows; then its
+   times (CUDA events, queued behind a spin kernel so that the host's
+   launch overhead stays out): cold, rotating over > 100 MB of inputs so
+   each call reads device memory, and warm, one input back to back as on
+   the path; the wrapper's host time per call; at the arm and ai2thor
+   shapes the plain version's times beside them, and the card's bound;
 4. the slice: `python -m var_tpu_torch.pretext`'s main at full arm width
    (batch 128, image 3x96x96, sound 1x100x40, representationDim 3,
    synthetic audio) with audioBackend='pallas': collect, then 5 epochs of
@@ -63,6 +65,29 @@ Phases; any failure exits non-zero and no phase is skipped:
    unprofiled wall times: kernel launches per env step and per update, the
    device's busy share of each, the ten longest kernels.
 
+Phases 15-19 run the ai2thor profile at its full width (image 3x96x96,
+sound 1x600x40, representationDim 3, GRU 1024, GRU input 128, action
+hidden 128, 8 actions, 50-step episodes, 4 PPO epochs x 2 minibatches),
+after the arm's device memory is released:
+15. pretext: `python -m var_tpu_torch.pretext --env ai2thor` with
+   audioBackend='pallas' on the synthetic FSC source: collect 768 triplets
+   on the grid pretext sim, then 5 epochs of 6 steps at batch 128; 2
+   mel-log-DCT launches per step, finite and falling losses; triplets/s
+   over epochs 1-4; one step with 'pallas' against 'gemm' (losses at the
+   CRNN's rtol 1e-3); where an epoch's time goes, as phase 6;
+16. the fused host path: 2 PPO updates at 8 envs x 50 steps on phase 15's
+   VAR, then a deterministic eval of 16 episodes (4 envs, 4 per class);
+17. the grid device sim: 3 PPO updates at 64 envs x 50 steps (the grid
+   E2E recipe's num_envs), then RLDeviceSimEval over 1024 episodes;
+   env-steps/s, episodes/s, peak device memory;
+18. card against CPU: the grid's fused step and update (8 envs x 10
+   steps), its device sim's collect, eval batch and update (8 envs x 10
+   steps), images, occupancy crops and success bits equal; the card's
+   render, occupancy crop and visibility against the host grid sim at
+   1,000 seeded states;
+19. where a grid device-sim collect and its update spend their time, as
+   phase 14.
+
 It then prints the card's name and power limit as nvidia-smi gives them,
 one JSON line with the kernels' numbers, and, last, one JSON line
 {"ok": true, "device": {...}}. Scratch output goes to build/chip_smoke/.
@@ -72,6 +97,7 @@ from __future__ import annotations
 import copy
 import csv
 import functools
+import gc
 import json
 import math
 import shutil
@@ -111,11 +137,16 @@ def peaks(name: str):
     raise AssertionError("unreachable")
 
 
-# (label, STFT preset, B, frames): the main path (arm, n_fft 512), the
-# ai2thor frame count, and the n_fft-1024 presets (NSynth/UrbanSound)
+# (label, STFT preset, B, frames): the arm path ("main", n_fft 512), the
+# ai2thor path (two launches of batch 128 a step; 256 if the step fused
+# pos + neg; 8 leaves a short last unit of rows), and the n_fft-1024
+# presets (NSynth/UrbanSound)
 CASES = (("main", "GoogleCommand", 128, 100),
-         ("ai2thor T", "GoogleCommand", 8, 600),
+         ("ai2thor", "FSC", 128, 600),
+         ("ai2thor pos+neg", "FSC", 256, 600),
+         ("ai2thor short unit", "FSC", 8, 600),
          ("n_fft 1024", "NSynth", 8, 100))
+TIMED_PLAIN = ("main", "ai2thor")  # the paths' shapes
 COLD_BYTES = 100e6  # rotating inputs this large cannot stay in the 50 MB L2
 _spin = {}
 
@@ -217,7 +248,7 @@ def kernel_times(torch, np, mld, audio):
                 print(f"time {label} {tuple(power.shape)} {layout}: "
                       f"cold {fmt(cold)}; warm {fmt(warm)}; host "
                       f"{warm[3]:.5f} ms a call", flush=True)
-                if label == "main":
+                if label in TIMED_PLAIN:
                     ref = functools.partial(mld.mel_log_dct_reference,
                                             params=params)
                     pcold, pwarm = cold_warm(torch, ref, power)
@@ -278,41 +309,64 @@ def check_mel_log_dct(torch, np, bw, flops):
         print("mel_log_dct: NaN/inf rows all NaN, as in the plain version",
               flush=True)
         rows = kernel_times(torch, np, mld, audio)
-    main = next(r for r in rows
-                if r["case"] == "main" and r["layout"] == "stft view")
-    Bm, T, F = main["shape"]
-    n_rows = Bm * T
-    mel = audio._frontend_constants(audio.PARAM_TABLE["GoogleCommand"],
-                                    "float32")[2]
-    nnz = int(np.count_nonzero(mel))
-    n_bytes = 4 * (n_rows * F + F * 40 + 40 * 40 + n_rows * 40)
-    n_flops = 2 * n_rows * (nnz + 40 * 40)  # the banded product's needs
-    t_bytes, t_flops = n_bytes / bw * 1e3, n_flops / flops * 1e3
-    bound = max(t_bytes, t_flops)
-    print(f"mel_log_dct {tuple(main['shape'])}: bound {bound:.5f} ms "
-          f"({n_bytes} bytes, {n_flops} flops); kernel cold "
-          f"{main['cold_ms']:.5f} ms = {100 * bound / main['cold_ms']:.1f}% "
-          f"of the bound", flush=True)
+    timed = {}
+    for label, preset, _, _ in CASES:
+        if label not in TIMED_PLAIN:
+            continue
+        row = next(r for r in rows
+                   if r["case"] == label and r["layout"] == "stft view")
+        Bm, T, F = row["shape"]
+        n_rows = Bm * T
+        mel = audio._frontend_constants(audio.PARAM_TABLE[preset],
+                                        "float32")[2]
+        nnz = int(np.count_nonzero(mel))
+        n_bytes = 4 * (n_rows * F + F * 40 + 40 * 40 + n_rows * 40)
+        n_flops = 2 * n_rows * (nnz + 40 * 40)  # the banded product's needs
+        t_bytes, t_flops = n_bytes / bw * 1e3, n_flops / flops * 1e3
+        bound = max(t_bytes, t_flops)
+        print(f"mel_log_dct {tuple(row['shape'])}: bound {bound:.5f} ms "
+              f"({n_bytes} bytes, {n_flops} flops); kernel cold "
+              f"{row['cold_ms']:.5f} ms = {100 * bound / row['cold_ms']:.1f}% "
+              f"of the bound", flush=True)
+        timed[label] = dict(
+            shape=row["shape"], ms=row["cold_ms"], warm_ms=row["warm_ms"],
+            plain_ms=row["plain_cold_ms"], bound_ms=bound,
+            bound_by="bytes" if t_bytes >= t_flops else "operations")
+    main = timed.pop("main")
     return dict(name="mel_log_dct", route="cuda",
                 source="var_tpu_torch/csrc/mel_log_dct.cu",
                 replaces="var_tpu/ops/audio_pallas.py:31",
-                max_abs_err=max_abs, ms=main["cold_ms"],
-                warm_ms=main["warm_ms"], plain_ms=main["plain_cold_ms"],
-                bound_ms=bound,
-                bound_by="bytes" if t_bytes >= t_flops else "operations",
-                library_ms=None)
+                max_abs_err=max_abs, ms=main["ms"], warm_ms=main["warm_ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=None,
+                # the ai2thor pretext's shape, timed the same way
+                by_shape=[dict(case=k, library_ms=None, **v)
+                          for k, v in timed.items()])
 
 
-def run_slice(torch):
-    """Phase 4: the port's pretext entry point at full arm width."""
+# each profile's full width and this script's depth on it; `key` prefixes
+# the profile's entries in the kernels line's launches_by_path
+PROFILES = {
+    "arms": dict(key="", sound=(1, 100, 40), steps=100, gru=512,
+                 rl_updates=3, eval_envs=8, eval_per_class=None,
+                 pretext_rel_tol=1e-4),
+    # the CRNN's allowance (BASELINE.md) for the pallas-vs-gemm loss
+    "ai2thor": dict(key="ai2thor_", sound=(1, 600, 40), steps=50, gru=1024,
+                    rl_updates=2, eval_envs=4, eval_per_class=1,
+                    pretext_rel_tol=1e-3),
+}
+
+
+def run_slice(torch, env="arms"):
+    """Phases 4 and 15: the port's pretext entry point at full width."""
     from var_tpu_torch.ops import mel_log_dct as mld
     from var_tpu_torch.pretext import main as pretext_main
 
-    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    prof, run = PROFILES[env], RUN_DIR / env
     argv = [
-        "--env", "arms", "--set",
-        f'pretextDataDir=["{RUN_DIR / "data"}"]',
-        f'pretextModelSaveDir="{RUN_DIR / "model"}"',
+        "--env", env, "--set",
+        f'pretextDataDir=["{run / "data"}"]',
+        f'pretextModelSaveDir="{run / "model"}"',
         'audioBackend="pallas"', "pretextModelFineTune=False",
         'pretextDataset="VARDataset"', 'vecEnvBackend="dummy"',
         "pretextCollectNum=[128,128,128,128,256]",
@@ -326,33 +380,36 @@ def run_slice(torch):
     launches = {"mel_log_dct": mld.mel_log_dct.launches}
 
     cfg = trainer.config
-    if cfg.pretextTrainBatchSize != 128 or tuple(cfg.sound_dim) != (1, 100, 40):
-        fail("the slice did not run at full arm width")
+    if cfg.pretextTrainBatchSize != 128 or \
+            tuple(cfg.sound_dim) != prof["sound"]:
+        fail(f"the {env} slice did not run at full width")
     steps = trainer.step
-    print(f"slice: {steps} training steps, mel_log_dct launches "
+    print(f"slice [{env}]: {steps} training steps, mel_log_dct launches "
           f"{launches['mel_log_dct']}, wall {wall:.2f} s", flush=True)
     if steps < 8 or launches["mel_log_dct"] != 2 * steps:
         fail(f"expected 2 kernel launches per step over >= 8 steps, got "
              f"{launches['mel_log_dct']} over {steps}")
-    progress = RUN_DIR / "model" / "progress.csv"
-    ckpt = RUN_DIR / "model" / "4" / "checkpoint.pt"
+    progress = run / "model" / "progress.csv"
+    ckpt = run / "model" / "4" / "checkpoint.pt"
     if not progress.exists() or not ckpt.exists():
         fail("missing progress.csv or checkpoint")
     losses = [float(v) for v in progress.read_text().split()[1:]]
-    print(f"slice: epoch losses {losses}", flush=True)
-    if len(losses) != 5 or not all(math.isfinite(v) for v in losses):
-        fail(f"bad epoch losses {losses}")
+    print(f"slice [{env}]: epoch losses {losses}", flush=True)
+    if len(losses) != 5 or not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0]:
+        fail(f"bad epoch losses {losses}: finite and falling expected")
     # epoch 0 holds the first-call set-up (cuDNN plans, allocator growth)
     rates = [n / t for n, t in trainer.epoch_stats[1:]]
-    print(f"slice: triplets/s over epochs 1-{len(rates)}: median "
+    print(f"slice [{env}]: triplets/s over epochs 1-{len(rates)}: median "
           f"{statistics.median(rates):.1f} (min {min(rates):.1f}, max "
           f"{max(rates):.1f}); epoch seconds "
           f"{[round(t, 5) for _, t in trainer.epoch_stats]}", flush=True)
     return trainer, launches
 
 
-def backend_agreement(torch, cfg):
-    """Phase 5: one step, same state and batch, 'pallas' vs 'gemm'."""
+def backend_agreement(torch, cfg, rel_tol=1e-4):
+    """Phases 5 and 15: one step, same state and batch, 'pallas' vs
+    'gemm'."""
     from var_tpu_torch.data.triplets import load_env_data
     from var_tpu_torch.train.pretext import PretextTrainer
 
@@ -382,7 +439,7 @@ def backend_agreement(torch, cfg):
     print(f"backends: loss pallas {losses['pallas']!r} gemm "
           f"{losses['gemm']!r}; sound features max abs diff {feat_err:.3e}",
           flush=True)
-    if not math.isclose(losses["pallas"], losses["gemm"], rel_tol=1e-4):
+    if not math.isclose(losses["pallas"], losses["gemm"], rel_tol=rel_tol):
         fail("pallas and gemm losses disagree")
     cfg.override(audioBackend="pallas")
     return trainer, ds, bank
@@ -412,15 +469,22 @@ def breakdown(torch, trainer, ds, bank):
     wall_ms = (time.perf_counter() - t0) * 1e3 / -(-n // batch)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         _, n = trainer._run_epoch_indexed(ds, bank, batch, epoch=3)
         torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
     steps = -(-n // batch)
+    prof_wall_ms /= steps
     kernels = _profiled_kernels(prof)
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    # kernels that overlap on several streams (cuDNN's bidirectional RNN)
+    # sum to more than the wall, so a share over 100% marks a device-bound
+    # step; the profiled epoch's own wall shows it is not tracing overhead
     print(f"breakdown: device kernel time {device_ms:.4f} ms/step "
           f"(profiled epoch), wall {wall_ms:.4f} ms/step (unprofiled "
-          f"epoch): device busy {100 * device_ms / wall_ms:.1f}% of wall",
-          flush=True)
+          f"epoch): device busy {100 * device_ms / wall_ms:.1f}% of wall; "
+          f"profiled epoch's wall {prof_wall_ms:.4f} ms/step, busy "
+          f"{100 * device_ms / prof_wall_ms:.1f}% of it", flush=True)
     launches = sum(e.count for e in kernels) / steps
     print(f"breakdown: {launches:.1f} kernel launches per step", flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
@@ -429,25 +493,39 @@ def breakdown(torch, trainer, ds, bank):
               f"x{e.count // steps:<3d} {e.key[:80]}", flush=True)
 
 
-RL_DIR = RUN_DIR / "rl_model"
-RL_UPDATES = 3
+RL_UPDATES = 3  # device-sim updates of either profile
 # mel_log_dct launches on each path, each counted from 0 just before it
 LAUNCHES = {}
 
 
-def rl_train(torch, np, mld):
-    """Phase 7: the port's RL entry point at full arm width."""
-    from var_tpu_torch.envs.spaces import Box
+def _width(cfg):
+    return (cfg.RLNumEnvs, cfg.ppoNumSteps, cfg.RLRecurrentSize,
+            cfg.RLRecurrentInputSize, cfg.RLActionHiddenSize, cfg.ppoEpoch,
+            cfg.ppoNumMiniBatch, tuple(cfg.img_dim), cfg.representationDim)
+
+
+def _start_policy(torch, cfg):
+    """The trainers' start: a fresh policy from RLEnvSeed."""
     from var_tpu_torch.models.policy import build_policy
+    from var_tpu_torch.train.rl import device_sim_profile
+
+    return build_policy(cfg, device_sim_profile(cfg)[0]).reset_parameters(
+        torch.Generator().manual_seed(int(cfg.RLEnvSeed)))
+
+
+def rl_train(torch, np, mld, env="arms"):
+    """Phases 7 and 16: the port's RL entry point at full width."""
     from var_tpu_torch.rl import main as rl_main
     from var_tpu_torch.train.checkpoint import load_checkpoint
 
+    prof, rl_dir = PROFILES[env], RUN_DIR / env / "rl_model"
+    updates, steps = prof["rl_updates"], prof["steps"]
     argv = [
-        "--env", "arms", "--set",
-        f'pretextModelLoadDir="{RUN_DIR / "model" / "4"}"',
-        f'RLModelSaveDir="{RL_DIR}"', "RLTrain=True",
+        "--env", env, "--set",
+        f'pretextModelLoadDir="{RUN_DIR / env / "model" / "4"}"',
+        f'RLModelSaveDir="{rl_dir}"', "RLTrain=True",
         "RLModelFineTune=False", 'vecEnvBackend="dummy"',
-        f"RLTotalSteps={RL_UPDATES * 8 * 100}", "RLModelSaveInterval=1",
+        f"RLTotalSteps={updates * 8 * steps}", "RLModelSaveInterval=1",
         "RLLogInterval=1",
     ]
     mld.mel_log_dct.launches = 0
@@ -456,23 +534,22 @@ def rl_train(torch, np, mld):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = mld.mel_log_dct.launches
-    LAUNCHES["rl train"] = launches
+    LAUNCHES[prof["key"] + "rl train"] = launches
     cfg = trainer.config
-    width = (cfg.RLNumEnvs, cfg.ppoNumSteps, cfg.RLRecurrentSize,
-             cfg.RLRecurrentInputSize, cfg.RLActionHiddenSize, cfg.ppoEpoch,
-             cfg.ppoNumMiniBatch, tuple(cfg.img_dim), cfg.representationDim)
-    print(f"rl train: {len(trainer.update_stats)} PPO updates at (envs, "
-          f"steps, GRU, GRU input, action hidden, epochs, minibatches, "
-          f"image, rep dim) = {width}; mel_log_dct launches {launches}; "
-          f"wall {wall:.2f} s", flush=True)
-    if width != (8, 100, 512, 128, 128, 4, 2, (3, 96, 96), 3):
-        fail("the RL phase did not run at full arm width")
-    if len(trainer.update_stats) != RL_UPDATES or launches != 0:
-        fail("expected 3 PPO updates and no mel_log_dct launch in RL")
-    labels = sorted(p.name for p in RL_DIR.iterdir() if p.name.isdigit())
-    if labels != [f"{j:05d}" for j in range(RL_UPDATES)]:
-        fail(f"expected {RL_UPDATES} checkpoints, found {labels}")
-    with open(RL_DIR / "progress.csv") as f:
+    width = _width(cfg)
+    print(f"rl train [{env}]: {len(trainer.update_stats)} PPO updates at "
+          f"(envs, steps, GRU, GRU input, action hidden, epochs, "
+          f"minibatches, image, rep dim) = {width}; mel_log_dct launches "
+          f"{launches}; wall {wall:.2f} s", flush=True)
+    if width != (8, steps, prof["gru"], 128, 128, 4, 2, (3, 96, 96), 3):
+        fail(f"the {env} RL phase did not run at full width")
+    if len(trainer.update_stats) != updates or launches != 0:
+        fail(f"expected {updates} PPO updates and no mel_log_dct launch "
+             f"in RL")
+    labels = sorted(p.name for p in rl_dir.iterdir() if p.name.isdigit())
+    if labels != [f"{j:05d}" for j in range(updates)]:
+        fail(f"expected {updates} checkpoints, found {labels}")
+    with open(rl_dir / "progress.csv") as f:
         rows = list(csv.DictReader(f))
     losses = [float(r[k]) for r in rows
               for k in ("loss/value_loss", "loss/policy_loss",
@@ -481,10 +558,8 @@ def rl_train(torch, np, mld):
           flush=True)
     if not rows or not all(math.isfinite(v) for v in losses):
         fail("bad RL losses in progress.csv")
-    # the trainer's start: a fresh policy from RLEnvSeed
-    start = build_policy(cfg, Box(-np.ones(2), np.ones(2))).reset_parameters(
-        torch.Generator().manual_seed(int(cfg.RLEnvSeed)))
-    final = load_checkpoint(str(RL_DIR / labels[-1]))["params"]
+    start = _start_policy(torch, cfg)
+    final = load_checkpoint(str(rl_dir / labels[-1]))["params"]
     moved = max((final[k] - v).abs().max().item()
                 for k, v in start.state_dict().items())
     print(f"rl train: largest parameter change {moved:.3e}", flush=True)
@@ -503,44 +578,52 @@ def rl_train(torch, np, mld):
     return trainer
 
 
-def rl_eval(torch, trainer, mld):
-    """Phase 8: deterministic evaluation of phase 7's last checkpoint."""
+def rl_eval(torch, trainer, mld, env="arms"):
+    """Phases 8 and 16: deterministic evaluation of the last checkpoint,
+    16 episodes: the arm on 8 envs; the grid on 4 envs, one episode per
+    class each (4 per class)."""
     from var_tpu_torch.train.rl import RLTrainer
 
+    prof, rl_dir = PROFILES[env], RUN_DIR / env / "rl_model"
     cfg = copy.deepcopy(trainer.config)
     cfg.override(RLTrain=False)
+    if prof["eval_per_class"]:
+        cfg.override(testEpisodesPerClass=prof["eval_per_class"])
     evaluator = RLTrainer(cfg, device="cuda")
     evaluator.load_pretext()
-    path = RL_DIR / f"{RL_UPDATES - 1:05d}"
-    n_envs, n_episodes = 8, 16
+    path = rl_dir / f"{prof['rl_updates'] - 1:05d}"
+    n_envs, n_episodes = prof["eval_envs"], 16
     mld.mel_log_dct.launches = 0
     t0 = time.perf_counter()
     rate = evaluator.testRL(num_episodes=n_episodes, policy_path=str(path),
                             num_envs=n_envs)
     wall = time.perf_counter() - t0
-    LAUNCHES["rl eval"] = mld.mel_log_dct.launches
-    with open(RL_DIR / f"test_{path.name}.csv") as f:
+    LAUNCHES[prof["key"] + "rl eval"] = mld.mel_log_dct.launches
+    with open(rl_dir / f"test_{path.name}.csv") as f:
         rows = list(csv.DictReader(f))
     steps = -(-n_episodes // n_envs) * cfg.RLEnvMaxSteps * n_envs
-    print(f"rl eval: {len(rows)} episodes, success rate {rate}, "
+    print(f"rl eval [{env}]: {len(rows)} episodes, per class "
+          f"{[sum(r['objIdx'] == str(c) for r in rows) for c in range(cfg.taskNum)]}, "
+          f"success rate {rate}, "
           f"{steps} env steps in {wall:.3f} s = {steps / wall:.1f} "
           f"env-steps/s (set-up included)", flush=True)
     if len(rows) != n_episodes or not 0.0 <= rate <= 1.0:
         fail("bad RL eval output")
 
 
-def card_against_cpu_phase():
-    """Phase 9: one fused rollout and one PPO update, card against CPU."""
+def card_against_cpu_phase(env="arms"):
+    """Phases 9 and 18: one fused rollout and one PPO update, card against
+    CPU."""
     from var_tpu_torch.config import main_config
     from var_tpu_torch.tools.rl_check import card_against_cpu
 
-    cfg = main_config(env="arms")
+    cfg = main_config(env=env)
     cfg.override(RLTrain=True, ppoNumSteps=10, RLEnvMaxSteps=5,
                  vecEnvBackend="dummy")
     t0 = time.perf_counter()
     report = card_against_cpu(cfg)
-    print(f"card vs cpu (8 envs x 10 steps, full width): {report} in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"card vs cpu [{env}] (8 envs x 10 steps, full width): {report} "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
     if not report["ok"]:
         fail("the RL step or update differs between the card and the CPU")
 
@@ -553,7 +636,7 @@ def rl_breakdown(torch, config):
     from var_tpu_torch.train.rl import RLTrainer
 
     cfg = copy.deepcopy(config)
-    cfg.override(RLModelSaveDir=str(RUN_DIR / "rl_profile"))
+    cfg.override(RLModelSaveDir=str(RUN_DIR / "rl_profile"))  # arm only
     trainer = RLTrainer(cfg, device="cuda")
     trainer.load_pretext()
     envs, engine, action = trainer.setup_fused()
@@ -620,26 +703,27 @@ def rl_breakdown(torch, config):
               f"x{n:<6d} {name[:90]}", flush=True)
 
 
-DS_DIR = RUN_DIR / "rl_devsim"
-DS_ENVS = 64  # the arm E2E recipe's RLNumEnvs (E2E_r05.json profiles.arms)
+# the E2E recipes' RLNumEnvs (E2E_r05.json profiles.arms and
+# profiles.ai2thor both run 64)
+DS_ENVS = 64
 DS_EPISODES = 1024  # the E2E device-eval episode count
 
 
-def devsim_train(torch, np, mld):
-    """Phase 11: device-sim training through the RL entry point at full
-    arm width with 64 envs."""
-    from var_tpu_torch.envs.spaces import Box
-    from var_tpu_torch.models.policy import build_policy
+def devsim_train(torch, np, mld, env="arms"):
+    """Phases 11 and 17: device-sim training through the RL entry point at
+    full width with 64 envs."""
     from var_tpu_torch.rl import main as rl_main
     from var_tpu_torch.train.checkpoint import load_checkpoint
 
+    prof, ds_dir = PROFILES[env], RUN_DIR / env / "rl_devsim"
+    key = prof["key"] + "device-sim train"
     argv = [
-        "--env", "arms", "--set",
-        f'pretextModelLoadDir="{RUN_DIR / "model" / "4"}"',
-        f'RLModelSaveDir="{DS_DIR}"', "RLTrain=True", "RLModelFineTune=False",
+        "--env", env, "--set",
+        f'pretextModelLoadDir="{RUN_DIR / env / "model" / "4"}"',
+        f'RLModelSaveDir="{ds_dir}"', "RLTrain=True", "RLModelFineTune=False",
         "RLDeviceSimRollout=True", f"RLNumEnvs={DS_ENVS}",
-        f"RLTotalSteps={RL_UPDATES * DS_ENVS * 100}", "RLModelSaveInterval=1",
-        "RLLogInterval=1",
+        f"RLTotalSteps={RL_UPDATES * DS_ENVS * prof['steps']}",
+        "RLModelSaveInterval=1", "RLLogInterval=1",
     ]
     torch.cuda.reset_peak_memory_stats()
     mld.mel_log_dct.launches = 0
@@ -647,26 +731,24 @@ def devsim_train(torch, np, mld):
     trainer = rl_main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    LAUNCHES["device-sim train"] = mld.mel_log_dct.launches
+    LAUNCHES[key] = mld.mel_log_dct.launches
     peak = torch.cuda.max_memory_allocated()
     cfg = trainer.config
-    width = (cfg.RLNumEnvs, cfg.ppoNumSteps, cfg.RLRecurrentSize,
-             cfg.RLRecurrentInputSize, cfg.RLActionHiddenSize, cfg.ppoEpoch,
-             cfg.ppoNumMiniBatch, tuple(cfg.img_dim), cfg.representationDim)
-    print(f"device-sim train: {len(trainer.update_stats)} PPO updates at "
-          f"(envs, steps, GRU, GRU input, action hidden, epochs, minibatches, "
-          f"image, rep dim) = {width}; mel_log_dct launches "
-          f"{LAUNCHES['device-sim train']}; wall {wall:.2f} s; peak device "
+    width = _width(cfg)
+    print(f"device-sim train [{env}]: {len(trainer.update_stats)} PPO "
+          f"updates at (envs, steps, GRU, GRU input, action hidden, epochs, "
+          f"minibatches, image, rep dim) = {width}; mel_log_dct launches "
+          f"{LAUNCHES[key]}; wall {wall:.2f} s; peak device "
           f"memory {peak / 2 ** 30:.3f} GiB ({peak} bytes)", flush=True)
-    if width != (DS_ENVS, 100, 512, 128, 128, 4, 2, (3, 96, 96), 3):
-        fail("the device-sim phase did not run at full arm width")
-    if len(trainer.update_stats) != RL_UPDATES \
-            or LAUNCHES["device-sim train"] != 0:
+    if width != (DS_ENVS, prof["steps"], prof["gru"], 128, 128, 4, 2,
+                 (3, 96, 96), 3):
+        fail(f"the {env} device-sim phase did not run at full width")
+    if len(trainer.update_stats) != RL_UPDATES or LAUNCHES[key] != 0:
         fail("expected 3 PPO updates and no mel_log_dct launch")
-    labels = sorted(p.name for p in DS_DIR.iterdir() if p.name.isdigit())
+    labels = sorted(p.name for p in ds_dir.iterdir() if p.name.isdigit())
     if labels != [f"{j:05d}" for j in range(RL_UPDATES)]:
         fail(f"expected {RL_UPDATES} checkpoints, found {labels}")
-    with open(DS_DIR / "progress.csv") as f:
+    with open(ds_dir / "progress.csv") as f:
         rows = list(csv.DictReader(f))
     losses = [float(r[k]) for r in rows
               for k in ("loss/value_loss", "loss/policy_loss",
@@ -675,9 +757,8 @@ def devsim_train(torch, np, mld):
           flush=True)
     if len(rows) != RL_UPDATES or not all(math.isfinite(v) for v in losses):
         fail("bad device-sim losses in progress.csv")
-    start = build_policy(cfg, Box(-np.ones(2), np.ones(2))).reset_parameters(
-        torch.Generator().manual_seed(int(cfg.RLEnvSeed)))
-    final = load_checkpoint(str(DS_DIR / labels[-1]))["params"]
+    start = _start_policy(torch, cfg)
+    final = load_checkpoint(str(ds_dir / labels[-1]))["params"]
     moved = max((final[k] - v).abs().max().item()
                 for k, v in start.state_dict().items())
     print(f"device-sim train: largest parameter change {moved:.3e}",
@@ -687,7 +768,8 @@ def devsim_train(torch, np, mld):
     # update 0 holds the first-call set-up (cuDNN plans, allocator growth)
     rates = [n / t for n, t in trainer.update_stats[1:]]
     timer = trainer.timer
-    print(f"device-sim train: env-steps/s over updates 1-{len(rates)}: "
+    print(f"device-sim train [{env}]: env-steps/s over updates "
+          f"1-{len(rates)}: "
           f"median {statistics.median(rates):.1f} (min {min(rates):.1f}, max "
           f"{max(rates):.1f}); update seconds "
           f"{[round(t, 5) for _, t in trainer.update_stats]}; p50 ms: "
@@ -696,13 +778,15 @@ def devsim_train(torch, np, mld):
     return trainer
 
 
-def devsim_eval(torch, trainer, mld):
-    """Phase 12: device-sim evaluation of phase 11's last checkpoint."""
+def devsim_eval(torch, trainer, mld, env="arms"):
+    """Phases 12 and 17: device-sim evaluation of the last checkpoint."""
     from var_tpu_torch.train.rl import RLTrainer
 
+    ds_dir = RUN_DIR / env / "rl_devsim"
+    key = PROFILES[env]["key"] + "device-sim eval"
     cfg = copy.deepcopy(trainer.config)
     cfg.override(RLTrain=False, RLDeviceSimEval=True)
-    path = DS_DIR / f"{RL_UPDATES - 1:05d}"
+    path = ds_dir / f"{RL_UPDATES - 1:05d}"
     mld.mel_log_dct.launches = 0
     t0 = time.perf_counter()
     evaluator = RLTrainer(cfg, device="cuda")
@@ -710,41 +794,44 @@ def devsim_eval(torch, trainer, mld):
     rate = evaluator.testRL(num_episodes=DS_EPISODES, policy_path=str(path),
                             num_envs=DS_ENVS)
     wall = time.perf_counter() - t0
-    LAUNCHES["device-sim eval"] = mld.mel_log_dct.launches
-    with open(DS_DIR / f"test_{path.name}_devicesim.csv") as f:
+    LAUNCHES[key] = mld.mel_log_dct.launches
+    with open(ds_dir / f"test_{path.name}_devicesim.csv") as f:
         rows = list(csv.DictReader(f))
     steps = DS_EPISODES * cfg.RLEnvMaxSteps
-    print(f"device-sim eval: {len(rows)} episodes, success rate {rate}, "
-          f"{DS_EPISODES / wall:.1f} episodes/s, {steps / wall:.1f} "
+    print(f"device-sim eval [{env}]: {len(rows)} episodes, success rate "
+          f"{rate}, {DS_EPISODES / wall:.1f} episodes/s, {steps / wall:.1f} "
           f"env-steps/s ({wall:.3f} s, set-up included); mel_log_dct "
-          f"launches {LAUNCHES['device-sim eval']}", flush=True)
+          f"launches {LAUNCHES[key]}", flush=True)
     if len(rows) != DS_EPISODES or not 0.0 <= rate <= 1.0 \
-            or LAUNCHES["device-sim eval"] != 0:
+            or LAUNCHES[key] != 0:
         fail("bad device-sim eval output")
 
 
-def devsim_card_against_cpu():
-    """Phase 13: the device sim on the card against the CPU."""
+def devsim_card_against_cpu(env="arms"):
+    """Phases 13 and 18: the device sim on the card against the CPU."""
     from var_tpu_torch.config import main_config
     from var_tpu_torch.tools.rl_check import (device_sim_card_against_cpu,
                                               render_card_against_host)
 
-    cfg = main_config(env="arms")
+    cfg = main_config(env=env)
     cfg.override(RLTrain=True, ppoNumSteps=10, RLEnvMaxSteps=10, RLNumEnvs=8)
     t0 = time.perf_counter()
     report = device_sim_card_against_cpu(cfg)
-    print(f"device sim, card vs cpu (8 envs x 10 steps, full width): "
-          f"{report} in {time.perf_counter() - t0:.2f} s", flush=True)
-    render = render_card_against_host(cfg, n=1000)
-    print(f"device sim, render on the card vs host get_image: {render}",
+    print(f"device sim [{env}], card vs cpu (8 envs x 10 steps, full "
+          f"width): {report} in {time.perf_counter() - t0:.2f} s",
           flush=True)
+    t0 = time.perf_counter()
+    render = render_card_against_host(cfg, n=1000)
+    print(f"device sim [{env}], render on the card vs the host sim: "
+          f"{render} in {time.perf_counter() - t0:.2f} s", flush=True)
     if not (report["ok"] and render["ok"]):
         fail("the device sim differs between the card and the CPU")
 
 
 def devsim_breakdown(torch, config):
-    """Phase 14: where one device-sim collect and its PPO update spend
-    their time (torch.profiler), beside their unprofiled wall times."""
+    """Phases 14 and 19: where one device-sim collect and its PPO update
+    spend their time (torch.profiler), beside their unprofiled wall
+    times."""
     from torch.profiler import ProfilerActivity, profile
 
     from var_tpu_torch.rl.device_sim import init_rms
@@ -818,6 +905,32 @@ def devsim_breakdown(torch, config):
               f"{100 * ms / total_dev:5.1f}% x{n:<6d} {name[:90]}", flush=True)
 
 
+def run_profile(torch, np, mld, env, kernel):
+    """Phases 4-14 (arm) or 15-19 (ai2thor), then frees the device memory
+    they held."""
+    prof = PROFILES[env]
+    trainer, launches = run_slice(torch, env)
+    LAUNCHES[prof["key"] + "pretext"] = launches[kernel["name"]]
+    if env == "arms":
+        kernel["launches"] = launches[kernel["name"]]
+    breakdown(torch, *backend_agreement(torch, trainer.config,
+                                        prof["pretext_rel_tol"]))
+
+    rl_trainer = rl_train(torch, np, mld, env)
+    rl_eval(torch, rl_trainer, mld, env)
+    card_against_cpu_phase(env)
+    if env == "arms":  # the grid's profile is of its device-sim cycle
+        rl_breakdown(torch, rl_trainer.config)
+
+    ds_trainer = devsim_train(torch, np, mld, env)
+    devsim_eval(torch, ds_trainer, mld, env)
+    devsim_card_against_cpu(env)
+    devsim_breakdown(torch, ds_trainer.config)
+    del trainer, rl_trainer, ds_trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -841,20 +954,12 @@ def main():
 
     bw, flops = peaks(line)
     kernel = check_mel_log_dct(torch, np, bw, flops)
-    trainer, launches = run_slice(torch)
-    kernel["launches"] = launches[kernel["name"]]
-    LAUNCHES["pretext"] = kernel["launches"]
-    breakdown(torch, *backend_agreement(torch, trainer.config))
-
-    rl_trainer = rl_train(torch, np, mld)
-    rl_eval(torch, rl_trainer, mld)
-    card_against_cpu_phase()
-    rl_breakdown(torch, rl_trainer.config)
-
-    ds_trainer = devsim_train(torch, np, mld)
-    devsim_eval(torch, ds_trainer, mld)
-    devsim_card_against_cpu()
-    devsim_breakdown(torch, ds_trainer.config)
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    for env in ("arms", "ai2thor"):
+        t_env = time.perf_counter()
+        run_profile(torch, np, mld, env, kernel)
+        print(f"{env}: all phases in {time.perf_counter() - t_env:.1f} s",
+              flush=True)
 
     kernel["launches_by_path"] = dict(LAUNCHES)
     print(line)

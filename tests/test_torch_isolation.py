@@ -50,6 +50,14 @@ def test_no_forbidden_import_in_source(path):
         assert not VAR_TPU.search(name), f"{path}: imports {name}"
 
 
+def test_ai2thor_modules_are_covered():
+    """The ai2thor profile's own modules are among those checked here."""
+    modules = set(_modules())
+    for name in ("config.ai2thor", "envs.grid_sim", "envs.grid_sim_device",
+                 "rl.device_sim", "models.policy", "ops.gru"):
+        assert f"var_tpu_torch.{name}" in modules
+
+
 def test_every_module_imports_with_jax_and_var_tpu_blocked():
     blocked = FORBIDDEN + ("var_tpu",)
     code = "\n".join([

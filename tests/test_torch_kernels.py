@@ -50,7 +50,9 @@ def _power(preset, B, frames, seed, layout="contiguous"):
 
 SHAPES = [
     ("GoogleCommand", 128, 100),  # the arm main path
-    ("GoogleCommand", 8, 600),    # the ai2thor frame count
+    ("GoogleCommand", 8, 600),    # the ai2thor frame count, a short last unit
+    ("FSC", 128, 600),            # the ai2thor path: (128, 601, 257)
+    ("FSC", 256, 600),            # its pos + neg batch, were they fused
     ("NSynth", 8, 100),           # n_fft 1024: F = 513
 ]
 LAYOUTS = ["stft view", "contiguous"]
@@ -125,6 +127,27 @@ def test_device_sim_agrees_on_card_and_cpu(monkeypatch):
     cfg.override(RLNumEnvs=4, ppoNumSteps=6, RLEnvMaxSteps=6,
                  RLRecurrentSize=32, RLRecurrentInputSize=16,
                  RLActionHiddenSize=32, RLTrain=True)
+    report = device_sim_card_against_cpu(cfg)
+    assert report["ok"], report
+    assert render_card_against_host(cfg, n=200)["ok"]
+
+
+@pytest.mark.cuda
+def test_grid_paths_agree_on_card_and_cpu(monkeypatch):
+    """chip_smoke.py phase 18 at reduced width: the ai2thor fused step and
+    update, the grid device sim (GRU 32, 4 envs, 6 steps, sound 1x100x40),
+    and the grid render, crop and visibility against the host sim at 200
+    states."""
+    _require_card("it holds the card against the CPU")
+    monkeypatch.setenv("VAR_TPU_SYNTH_CLIPS", "3")
+    cfg = main_config(env="ai2thor")
+    cfg.override(RLNumEnvs=4, ppoNumSteps=6, RLEnvMaxSteps=3,
+                 RLRecurrentSize=32, RLRecurrentInputSize=16,
+                 RLActionHiddenSize=32, vecEnvBackend="dummy", RLTrain=True,
+                 sound_dim=(1, 100, 40))
+    report = card_against_cpu(cfg)
+    assert report["ok"], report
+    cfg.override(RLEnvMaxSteps=6)
     report = device_sim_card_against_cpu(cfg)
     assert report["ok"], report
     assert render_card_against_host(cfg, n=200)["ok"]

@@ -247,5 +247,10 @@ def test_policy_layout_and_init():
     assert isinstance(tdist.make_head(tspaces.MultiBinary(4), 8),
                       tdist.BernoulliHead)
     cfg.RLPolicyBase = "ai2thor_VAR"
-    with pytest.raises(NotImplementedError, match="ai2thor"):
+    grid = tpolicy.build_policy(cfg, tspaces.Discrete(8))
+    assert isinstance(grid.base, tpolicy.AI2ThorPolicyBase)
+    assert isinstance(grid.dist_head, tdist.CategoricalHead)
+    assert tpolicy.conv_grid((1, 9, 9), tpolicy.OCCUPANCY_CONVS) == (32, 3, 3)
+    cfg.RLPolicyBase = "no_such_base"
+    with pytest.raises(KeyError):
         tpolicy.build_policy(cfg, tspaces.Discrete(8))

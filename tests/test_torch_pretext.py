@@ -283,8 +283,8 @@ def test_config_knobs_match_jax():
     jcfg, tcfg = jconfig.main_config(env="arms"), tconfig.main_config(env="arms")
     assert vars(tcfg) == vars(jcfg)
     assert tcfg.audioBackend == "fft"
-    with pytest.raises(NotImplementedError):
-        tconfig.main_config(env="ai2thor")
+    assert vars(tconfig.main_config(env="ai2thor")) == vars(
+        jconfig.main_config(env="ai2thor"))
 
 
 def test_entry_points_default_to_cuda_and_never_fall_back():

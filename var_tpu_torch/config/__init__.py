@@ -1,12 +1,11 @@
 """Config selection and env registration (mirrors var_tpu/config/__init__.py).
 
 ENV/TASK may be set via the VAR_TPU_ENV / VAR_TPU_TASK environment
-variables, with the same names and defaults as the JAX package. Only the
-arm profile is ported; the ai2thor profile waits for its slice (ROADMAP
-"Modules left to port", item 7).
+variables, with the same names and defaults as the JAX package.
 """
 import os
 
+from .ai2thor import AI2ThorConfig, AI2ThorEnvConfig
 from .arm import ArmConfig, KukaEnvConfig
 from .base import ConfigBase, printColor
 
@@ -20,9 +19,9 @@ def main_config(env: str = None, task: str = None):
     task = TASK if task is None else task
 
     if env == "ai2thor":
-        raise NotImplementedError(
-            "the ai2thor profile is not ported yet (ROADMAP 'Modules left "
-            "to port', item 7: the ai2thor profile); use --env arms")
+        config = AI2ThorConfig()
+        config.get_env_config(AI2ThorEnvConfig)
+        return config
     if env == "arms":
         if task not in ("fourInARow",):
             raise NotImplementedError(f"Unknown arms task {task!r}")
@@ -47,5 +46,5 @@ def gym_register(config, env: str = None):
 
 __all__ = [
     "ConfigBase", "printColor", "ArmConfig", "KukaEnvConfig",
-    "main_config", "gym_register", "ENV", "TASK",
+    "AI2ThorConfig", "AI2ThorEnvConfig", "main_config", "gym_register", "ENV", "TASK",
 ]

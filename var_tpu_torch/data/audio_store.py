@@ -1,22 +1,27 @@
-"""Audio clip store, arm (pybullet-keyed) path (port of
-var_tpu/data/audio_store.py).
+"""Audio clip store (port of var_tpu/data/audio_store.py).
 
-Loads 16 kHz mono int16 wav clips keyed by intent index and serves per-clip
-MFCC features to the host sims, and a packed int16 clip bank to the
-pretext trainer, which computes MFCC on the device.
+Loads 16 kHz mono int16 wav clips keyed by intent index (arm) or by
+(location, object, action) task vocabulary (ai2thor, the FSC corpus) and
+serves per-clip MFCC features to the host sims, and a packed int16 clip bank
+to the pretext trainer, which computes MFCC on the device.
 
 When the wav corpora are not on disk, a deterministic synthetic source
 generates class-distinguishable clips with the same RandomState seeds
-(1000 + intent) and the same VAR_TPU_SYNTH_CLIPS count as the JAX package,
-so both packages hold byte-identical banks. The ai2thor/FSC loaders and the
-python_speech_features MFCC branch wait for later slices.
+(1000 + intent for the arm, 2000 + class for ai2thor) and the same
+VAR_TPU_SYNTH_CLIPS count as the JAX package, so both packages hold
+byte-identical banks. The FSC metadata CSV is read with the csv module
+(the JAX package uses pandas) and selects the same rows in the same order.
+The python_speech_features MFCC branch and FSC clips for the arm profile
+are not ported.
 """
 from __future__ import annotations
 
+import csv
 import glob
 import os
 import warnings
-from typing import Dict, List, Optional
+from collections import namedtuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -27,6 +32,9 @@ from var_tpu_torch.ops.audio import (
     pack_waveform,
     process_sound_feat,
 )
+
+# an ai2thor task: (location, object, action) in the env's vocabulary
+Task = namedtuple("Task", ["loc", "obj", "act"])
 
 FS = 16000
 
@@ -64,21 +72,30 @@ class AudioStore:
         self.param_dict: Dict[str, STFTParams] = dict(PARAM_TABLE)
         self.fs = FS
         self.words: Dict = {}
+        self.transcription: Dict = {}
         env_folder = getattr(config, "envFolder", "ai2thor")
         head = os.path.split(env_folder)[0]
         self.env_type = head if head else env_folder
-        if self.env_type != "pybullet":
-            raise NotImplementedError(
-                f"the {self.env_type!r} audio store is not ported yet; "
-                "only the arm (pybullet-keyed) store is")
+        if self.env_type not in ("pybullet", "ai2thor"):
+            raise NotImplementedError(self.env_type)
         self._loaded = False
+        # class list for ai2thor: enumerate tasks in config.allTasks order
+        if self.env_type == "ai2thor":
+            self.task_tuples: List[Tuple[str, str, str]] = []
+            for loc in config.allTasks:
+                for obj in config.allTasks[loc]:
+                    for act in config.allTasks[loc][obj]:
+                        self.task_tuples.append((loc, obj, act))
 
     # -- loading ----------------------------------------------------------
 
     def loadData(self):
         if self._loaded:
             return
-        self._load_pybullet()
+        if self.env_type == "pybullet":
+            self._load_pybullet()
+        else:
+            self._load_ai2thor()
         self._loaded = True
         print("Sound Loaded")
 
@@ -144,6 +161,105 @@ class AudioStore:
                 f"{cfg.commonMediaPath!r}; using the synthetic source"
             )
 
+    def _load_ai2thor(self):
+        """words[loc][obj][act] = [clips] from the FSC metadata CSV, or the
+        synthetic source when the CSV is absent or selects no clip."""
+        cfg = self.config
+        src = cfg.soundSource
+        csv_path = os.path.join(
+            cfg.commonMediaPath, "FSC", "data", src.get("FSC_csv", "train_data.csv")
+        )
+        loaded_real = False
+        if os.path.exists(csv_path):
+            loaded_real = self._load_fsc_csv(csv_path)
+        if not loaded_real:
+            warnings.warn(
+                f"AudioStore: FSC metadata not found at {csv_path!r}; "
+                "using the synthetic source"
+            )
+            self._load_ai2thor_synthetic()
+        else:
+            # a partially-populated corpus must not KeyError later
+            self._fill_missing_ai2thor_classes()
+
+    def _load_fsc_csv(self, csv_path: str) -> bool:
+        """Rows are selected per (location, object, action) in the CSV's
+        order, as the JAX package's pandas filters select them."""
+        cfg = self.config
+        src = cfg.soundSource
+        with open(csv_path, newline="") as f:
+            rows = list(csv.DictReader(f))
+        objs = list(src["FSC_obj_act"].keys())
+        rows = [r for r in rows if r.get("object") in objs]
+        load_size = src.get("size", -1)
+        max_dur = src.get("FSC_max_sound_dur", 6.0)
+        any_loaded = False
+        fsc_root = os.path.join(cfg.commonMediaPath, "FSC")
+        for loc in src["FSC_locations"]:
+            loc_rows = [r for r in rows if r.get("location") == loc]
+            self.words.setdefault(loc, {})
+            self.transcription.setdefault(loc, {})
+            for obj in objs:
+                obj_rows = [r for r in loc_rows if r["object"] == obj]
+                if not obj_rows:
+                    continue
+                self.words[loc].setdefault(obj, {})
+                self.transcription[loc].setdefault(obj, {})
+                for act in src["FSC_obj_act"][obj]:
+                    clips, trans = [], []
+                    for row in obj_rows:
+                        if row.get("action") != act:
+                            continue
+                        if load_size > 0 and len(clips) >= load_size:
+                            break
+                        clip = self._read_wav(os.path.join(fsc_root, row["path"]))
+                        if clip is None or len(clip) > max_dur * FS:
+                            continue
+                        clips.append(clip)
+                        trans.append(row.get("transcription", ""))
+                    if clips:
+                        self.words[loc][obj][act] = clips
+                        self.transcription[loc][obj][act] = trans
+                        any_loaded = True
+        return any_loaded
+
+    def _synth_ai2thor(self, only_missing: bool) -> List[Tuple[str, str, str]]:
+        """Synthetic clips (RandomState(2000 + class), 1-3 s) for every
+        (loc, obj, act) class, or only for those left empty; returns the
+        classes filled."""
+        src = self.config.soundSource
+        n_synth = int(os.environ.get("VAR_TPU_SYNTH_CLIPS", "32"))
+        class_idx = 0
+        filled = []
+        for loc in src["FSC_locations"]:
+            self.words.setdefault(loc, {})
+            self.transcription.setdefault(loc, {})
+            for obj, acts in src["FSC_obj_act"].items():
+                self.words[loc].setdefault(obj, {})
+                self.transcription[loc].setdefault(obj, {})
+                for act in acts:
+                    if not (only_missing and self.words[loc][obj].get(act)):
+                        rng = np.random.RandomState(2000 + class_idx)
+                        self.words[loc][obj][act] = [
+                            synth_clip(class_idx, rng, 1.0, 3.0)
+                            for _ in range(n_synth)]
+                        self.transcription[loc][obj][act] = [
+                            f"{act} the {obj} ({loc})"] * n_synth
+                        filled.append((loc, obj, act))
+                    class_idx += 1
+        return filled
+
+    def _fill_missing_ai2thor_classes(self):
+        """Synthetic back-fill for the classes the real corpus left empty."""
+        filled = self._synth_ai2thor(only_missing=True)
+        if filled:
+            warnings.warn(
+                f"AudioStore: corpus missing {len(filled)} (loc,obj,act) "
+                f"classes (e.g. {filled[0]}); back-filled synthetically")
+
+    def _load_ai2thor_synthetic(self):
+        self._synth_ai2thor(only_missing=False)
+
     # -- host sampling (env-side) ------------------------------------------
 
     def getAudioSamples(self, intentIdx: int, rand_fn):
@@ -175,6 +291,31 @@ class AudioStore:
                              backend=backend)
         return feat, clip
 
+    def _resolve_task(self, tsk, rand):
+        """Map an env task through the synonym table to FSC vocabulary.
+        Draw order: the location synonym, then the object synonym."""
+        syn = self.config.synonym
+        loc = syn[tsk.loc][rand.randint(0, len(syn[tsk.loc]))]
+        obj = syn[tsk.obj][rand.randint(0, len(syn[tsk.obj]))]
+        obj_act = self.config.soundSource["FSC_obj_act"][obj]
+        act = sorted(set(obj_act).intersection(syn[tsk.act]))[0]
+        return loc, obj, act
+
+    def getAudioFromTask(self, random_func, tsk: Task):
+        """(feature (1, T, 40), clip, transcription) for an ai2thor task;
+        the synonym draws come first, then the clip's."""
+        loc, obj, act = self._resolve_task(tsk, random_func)
+        clips = self.words[loc][obj][act]
+        idx = int(random_func.randint(0, len(clips)))
+        clip = clips[idx]
+        param = self.param_dict[
+            self.config.soundSource["dataset"]
+            if isinstance(self.config.soundSource["dataset"], str)
+            else "FSC"
+        ]
+        return (self.get_mfcc(clip, param), clip,
+                self.transcription[loc][obj][act][idx])
+
     # -- the trainer's packed clip bank ---------------------------------------
 
     @property
@@ -198,11 +339,38 @@ class AudioStore:
             return True
         return len({self.param_dict[d] for d in ds}) == 1
 
+    def gen_feat_for_class(self, class_idx: int,
+                           rng: np.random.RandomState) -> np.ndarray:
+        """(1, T, 40) host feature for a canonical class index; zeros for
+        the empty class."""
+        if class_idx >= self.config.taskNum:
+            return np.zeros(self.config.sound_dim, np.float32)
+        if self.env_type == "pybullet":
+            feat, _ = self.genSoundFeat(class_idx, "MFCC", rng.randint)
+            return np.asarray(feat, np.float32)
+        loc, obj, act = self.task_tuples[class_idx]
+        feat, _, _ = self.getAudioFromTask(rng, Task(loc, obj, act))
+        return np.asarray(feat, np.float32)
+
     def class_clips(self, class_idx: int) -> List[np.ndarray]:
-        """All clips of an intent, over its datasets."""
+        """All clips of a canonical class index: an arm intent's over its
+        datasets, or an ai2thor task's over every synonym resolution
+        `_resolve_task` can draw, so the bank covers the goals' support."""
+        if self.env_type == "pybullet":
+            out = []
+            for ds in self.words[class_idx]:
+                out.extend(self.words[class_idx][ds])
+            return out
+        loc, obj, act = self.task_tuples[class_idx]
+        syn = self.config.synonym
+        obj_act = self.config.soundSource["FSC_obj_act"]
         out = []
-        for ds in self.words[class_idx]:
-            out.extend(self.words[class_idx][ds])
+        for l in syn[loc]:
+            for o in syn[obj]:
+                acts = sorted(set(obj_act.get(o, [])) & set(syn[act]))
+                for a in acts:
+                    out.extend(
+                        self.words.get(l, {}).get(o, {}).get(a, []))
         return out
 
     def build_clip_bank(self):

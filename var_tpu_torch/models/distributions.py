@@ -41,6 +41,13 @@ def _draw_shape(dist: DistParams):
     return ref.shape, ref.dtype, ref.device
 
 
+def gumbel_noise(shape, generator: Optional[torch.Generator] = None,
+                 dtype=torch.float32, device=None) -> torch.Tensor:
+    """Standard Gumbel draws, -log(-log(u)), the categorical's `noise`."""
+    u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(dtype).tiny)))
+
+
 def sample(dist: DistParams, generator: Optional[torch.Generator] = None,
            noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A draw from `dist`, from `generator` (on the tensors' device) or
@@ -50,14 +57,11 @@ def sample(dist: DistParams, generator: Optional[torch.Generator] = None,
         if dist.kind == "gaussian":
             noise = torch.randn(shape, generator=generator, dtype=dtype,
                                 device=device)
+        elif dist.kind == "categorical":
+            noise = gumbel_noise(shape, generator, dtype, device)
         else:
-            u = torch.rand(shape, generator=generator, dtype=dtype,
-                           device=device)
-            if dist.kind == "categorical":
-                tiny = torch.finfo(dtype).tiny
-                noise = -torch.log(-torch.log(u.clamp_min(tiny)))
-            else:
-                noise = u
+            noise = torch.rand(shape, generator=generator, dtype=dtype,
+                               device=device)
     if dist.kind == "categorical":
         a = torch.argmax(dist.logits + noise, dim=-1)
         return a[:, None].to(torch.int32)

@@ -1,10 +1,13 @@
-"""VAR pretext encoders, arm variant (port of var_tpu/models/encoders.py).
+"""VAR pretext encoders (port of var_tpu/models/encoders.py).
 
-An image CNN and a sound CNN, each followed by an MLP head, both projected
-onto the unit sphere. NCHW throughout, which is also the JAX package's
-public layout, so inputs compare like with like. The flattened conv
-features are in torch's CHW order; convert.py permutes the first dense
-layer of each head when it loads the JAX package's parameters.
+An image CNN and a sound CNN (arm) or CRNN (ai2thor), each followed by an
+MLP head, both projected onto the unit sphere. NCHW throughout, which is
+also the JAX package's public layout, so inputs compare like with like.
+The flattened conv features are in torch's CHW order; convert.py permutes
+the first dense layer of each head when it loads the JAX package's
+parameters. The CRNN's conv output is permuted to (B, T, W, C) before it
+becomes the GRU's (B, T, W*C) sequence, which is the JAX package's NHWC
+order, so the GRU's weights need no permutation.
 
 Parameters start the way flax initialises them (truncated-normal
 lecun kernels, zero biases) so that a port run trains from the same kind
@@ -19,6 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from var_tpu_torch.ops.gru import GRUParams, bigru_final
 from var_tpu_torch.ops.losses import l2_normalize
 
 
@@ -71,6 +75,68 @@ class ArmSoundBranch(nn.Module):
         return x.flatten(1)  # (B, 32*5*1)
 
 
+class AI2ThorImageBranch(nn.Module):
+    """VGG-ish 6-conv/4-maxpool stack: (3,96,96) -> (128,3,3) -> flatten."""
+
+    # (out_channels, stride) of each 3x3 conv; a 2x2 max-pool follows
+    # convs 1-4
+    LAYERS = ((32, 1), (32, 1), (64, 1), (64, 1), (128, 1), (128, 2))
+
+    def __init__(self):
+        super().__init__()
+        chans = (3,) + tuple(c for c, _ in self.LAYERS)
+        self.convs = nn.ModuleList(
+            nn.Conv2d(chans[i], chans[i + 1], 3, stride=s, padding=1)
+            for i, (_, s) in enumerate(self.LAYERS))
+
+    def forward(self, x):
+        for i, conv in enumerate(self.convs):
+            x = F.relu(conv(x))
+            if 1 <= i <= 4:
+                x = F.max_pool2d(x, 2)  # 48, 24, 12, 6
+        return x.flatten(1)  # (B, 128*3*3)
+
+
+class AI2ThorSoundBranch(nn.Module):
+    """CRNN: 3 convs over (1,600,40) -> (64, 73, 7) -> the (73, 7*64)
+    sequence in (W, C) order -> BiGRU(448 -> 512), the concat of the final
+    forward and backward states -> (B, 1024)."""
+
+    HIDDEN = 512
+
+    def __init__(self):
+        super().__init__()
+        self.convs = nn.ModuleList([
+            nn.Conv2d(1, 64, (11, 11), stride=2, padding=(5, 5)),
+            nn.Conv2d(64, 64, (11, 5), stride=2, padding=(5, 5)),
+            nn.Conv2d(64, 64, (7, 3), stride=2, padding=(1, 1)),
+        ])
+        h, d = self.HIDDEN, 7 * 64
+        for name in ("fwd", "bwd"):
+            for k, shape in (("w_ih", (3 * h, d)), ("w_hh", (3 * h, h)),
+                             ("b_ih", (3 * h,)), ("b_hh", (3 * h,))):
+                setattr(self, f"gru_{name}_{k}",
+                        nn.Parameter(torch.empty(shape)))
+
+    def _gru(self, name: str) -> GRUParams:
+        return GRUParams(*(getattr(self, f"gru_{name}_{k}")
+                           for k in ("w_ih", "w_hh", "b_ih", "b_hh")))
+
+    @torch.no_grad()
+    def reset_gru(self, generator: Optional[torch.Generator] = None):
+        """U(-1/sqrt(H), 1/sqrt(H)), as the JAX package and nn.GRU."""
+        s = 1.0 / math.sqrt(self.HIDDEN)
+        for name in ("fwd", "bwd"):
+            for p in self._gru(name):
+                p.uniform_(-s, s, generator=generator)
+
+    def forward(self, x):
+        for conv in self.convs:
+            x = F.relu(conv(x))  # (B, 64, 73, 7) after the third
+        seq = x.permute(0, 2, 3, 1).flatten(2)  # (B, 73, 7*64), (W, C) order
+        return bigru_final(self._gru("fwd"), self._gru("bwd"), seq)
+
+
 class TripletHead(nn.Module):
     """MLP projection head ending at representationDim, before the L2 norm.
     layers[i] holds the JAX package's Dense_i."""
@@ -89,18 +155,36 @@ class TripletHead(nn.Module):
 
 class VARPretextNet(nn.Module):
     """Shared VAR contract: encode_image / encode_sound both project onto
-    the L2-normalised representation sphere. Arm variant only."""
+    the L2-normalised representation sphere. `variant` selects the arm
+    conv/conv or the ai2thor conv/CRNN architecture."""
 
-    def __init__(self, representation_dim: int = 3):
+    def __init__(self, representation_dim: int = 3, variant: str = "arm"):
         super().__init__()
-        self.img_branch = ArmImageBranch()
-        self.sound_branch = ArmSoundBranch()
-        self.img_triplet = TripletHead(64 * 3 * 3, (128,), representation_dim)
-        self.sound_triplet = TripletHead(32 * 5, (128,), representation_dim)
+        self.variant = variant
+        if variant == "arm":
+            self.img_branch = ArmImageBranch()
+            self.sound_branch = ArmSoundBranch()
+            self.img_triplet = TripletHead(64 * 3 * 3, (128,),
+                                           representation_dim)
+            self.sound_triplet = TripletHead(32 * 5, (128,),
+                                             representation_dim)
+        elif variant == "ai2thor":
+            self.img_branch = AI2ThorImageBranch()
+            self.sound_branch = AI2ThorSoundBranch()
+            self.img_triplet = TripletHead(128 * 3 * 3, (128,),
+                                           representation_dim)
+            self.sound_triplet = TripletHead(
+                2 * AI2ThorSoundBranch.HIDDEN, (128, 64), representation_dim)
+        else:
+            raise ValueError(variant)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """flax defaults: lecun_normal kernels, zero biases."""
-        return flax_default_init_(self, generator)
+        """flax defaults: lecun_normal kernels, zero biases; the CRNN's GRU
+        uniform as nn.GRU's."""
+        flax_default_init_(self, generator)
+        if self.variant == "ai2thor":
+            self.sound_branch.reset_gru(generator)
+        return self
 
     def encode_image(self, image):
         """image (B,3,96,96) in [0,1] -> (raw_feat, sphere_feat)."""
@@ -125,23 +209,20 @@ class VARPretextNet(nn.Module):
         return out
 
 
-def _arm(config) -> VARPretextNet:
-    dtype = getattr(config, "computeDtype", "float32")
-    if dtype != "float32":
-        raise NotImplementedError(
-            f"computeDtype={dtype!r} is not ported; only float32 is")
-    return VARPretextNet(representation_dim=config.representationDim)
+def _builder(variant: str):
+    def build(config) -> VARPretextNet:
+        dtype = getattr(config, "computeDtype", "float32")
+        if dtype != "float32":
+            raise NotImplementedError(
+                f"computeDtype={dtype!r} is not ported; only float32 is")
+        return VARPretextNet(config.representationDim, variant)
 
-
-def _ai2thor(config):
-    raise NotImplementedError(
-        "ai2thor_VARPretextNet (CRNN sound branch) is not ported yet "
-        "(ROADMAP 'Modules left to port', item 7: the ai2thor profile)")
+    return build
 
 
 _MODEL_REGISTRY = {
-    "arm_VARPretextNet": _arm,
-    "ai2thor_VARPretextNet": _ai2thor,
+    "arm_VARPretextNet": _builder("arm"),
+    "ai2thor_VARPretextNet": _builder("ai2thor"),
 }
 
 

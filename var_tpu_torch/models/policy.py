@@ -1,26 +1,28 @@
 """Actor-critic policy networks (port of var_tpu/models/policy.py).
 
-- Policy: the arm base net by name and a distribution head by action
-  space (reference: models/ppo/model.py:15-82);
+- Policy: a base net by name and a distribution head by action space
+  (reference: models/ppo/model.py:15-82);
 - the GRU core with done-mask resets: one masked scan (ops/gru.py) covers
   both the one-step and the (T, N)-sequence case;
-- ArmPolicyBase, armNet_VAR (reference: models/RL/arm_RL_model.py:41-134):
-  image CNN + VAR-embedding motor branch fused by residual additions
-  around the GRU, a goal-sound-embedding branch added after, separate
-  actor and critic heads.
+- ArmPolicyBase, armNet_VAR (reference: models/RL/arm_RL_model.py:41-134),
+  and AI2ThorPolicyBase, ai2thorNet_VAR (models/RL/ai2thor_RL_model.py:
+  7-115): image CNN + VAR-embedding motor branch (+ an egocentric
+  occupancy branch for ai2thor) fused by residual additions around the
+  GRU, a goal-sound-embedding branch added after, separate actor and
+  critic heads.
 
 NCHW throughout, as the JAX package's public layout. The flattened conv
-features are in CHW order; convert.py permutes the first cnnMlp layer of
-the JAX package's NHWC-flattened parameters. Every Linear starts
-orthogonal with the reference's gain (sqrt(2) on the MLPs) and a zero
-bias, the GRU orthogonal with zero biases, the convs at flax's defaults;
-the draws come from a torch.Generator and differ from JAX's.
-
-The ai2thor base waits for its profile (ROADMAP "Modules left to port",
-item 7).
+features are in CHW order; convert.py permutes the first layer after each
+conv stack (cnnMlp_0, occMlp_0) of the JAX package's NHWC-flattened
+parameters. Every MLP Linear starts orthogonal with the reference's gain
+(sqrt(2)) and a zero bias, the GRU orthogonal with zero biases, the convs
+and the occupancy branch's two Linears at flax's defaults (as the JAX
+package's plain nn.Dense); the draws come from a torch.Generator and
+differ from JAX's.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -52,20 +54,50 @@ ARM_CAMERA_CONVS = ((64, 7, 2, 1), (64, 3, 1, 1), "pool",
                     (512, 3, 1, 1), "pool")
 
 
+# ai2thorNet_VAR's image stack: 96 -> 48 -> 24 -> 12 -> 6 -> 3
+AI2THOR_CONVS = ((32, 3, 1, 1), (32, 3, 1, 1), "pool",
+                 (64, 3, 1, 1), "pool", (64, 3, 1, 1), "pool",
+                 (128, 3, 1, 1), "pool", (128, 3, 2, 1))
+# its occupancy stack over the (1, 9, 9) crop: 9 -> 5 -> 3
+OCCUPANCY_CONVS = ((64, 3, 2, 1), (32, 3, 2, 1))
+
+
 def conv_plan(img_dim: Sequence[int]):
     return ARM96_CONVS if img_dim[-1] == 96 else ARM_CAMERA_CONVS
 
 
-def conv_grid(img_dim: Sequence[int]) -> Tuple[int, int, int]:
-    """(channels, height, width) of the conv stack's output."""
+def conv_grid(img_dim: Sequence[int], plan=None) -> Tuple[int, int, int]:
+    """(channels, height, width) of a conv stack's output (the arm's stack
+    for `img_dim` unless `plan` names another)."""
     c, h, w = img_dim
-    for layer in conv_plan(img_dim):
+    for layer in (conv_plan(img_dim) if plan is None else plan):
         if layer == "pool":
             h, w = h // 2, w // 2
         else:
             c, k, s, p = layer
             h, w = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
     return c, h, w
+
+
+def _convs(plan, in_channels: int) -> nn.ModuleList:
+    convs, c = [], in_channels
+    for layer in plan:
+        if layer != "pool":
+            out, k, s, p = layer
+            convs.append(nn.Conv2d(c, out, k, stride=s, padding=p))
+            c = out
+    return nn.ModuleList(convs)
+
+
+def _run_convs(plan, convs: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
+    """The stack with ReLU after each conv and 2x2 max-pools; flattened."""
+    it = iter(convs)
+    for layer in plan:
+        if layer == "pool":
+            x = F.max_pool2d(x, 2)
+        else:
+            x = F.relu(next(it)(x))
+    return x.flatten(1)
 
 
 def _mlp(in_features: int, sizes: Sequence[int]) -> nn.ModuleList:
@@ -126,16 +158,8 @@ class ArmPolicyBase(nn.Module):
         super().__init__()
         self.recurrent = recurrent
         self.plan = conv_plan(img_dim)
-        convs, c = [], img_dim[0]
-        for layer in self.plan:
-            if layer != "pool":
-                out, k, s, p = layer
-                convs.append(nn.Conv2d(c, out, k, stride=s, padding=p))
-                c = out
-        self.convs = nn.ModuleList(convs)
-        flat = 1
-        for d in conv_grid(img_dim):
-            flat *= d
+        self.convs = _convs(self.plan, img_dim[0])
+        flat = math.prod(conv_grid(img_dim))
 
         self.cnnMlp = _mlp(flat, (512, 256))
         self.motorMlp = _mlp(representation_dim + robot_state_dim,
@@ -160,15 +184,7 @@ class ArmPolicyBase(nn.Module):
 
     def forward(self, obs: Dict[str, torch.Tensor], rnn_hx, masks,
                 seq_len: int = 1):
-        x = _norm_img(obs["image"])
-        convs = iter(self.convs)
-        for layer in self.plan:
-            if layer == "pool":
-                x = F.max_pool2d(x, 2)
-            else:
-                x = F.relu(next(convs)(x))
-        x = x.flatten(1)
-
+        x = _run_convs(self.plan, self.convs, _norm_img(obs["image"]))
         image_flatten = _run(self.cnnMlp, x)
         motor = _run(self.motorMlp,
                      torch.cat([obs["image_feat"], obs["robot_pose"]], dim=1))
@@ -186,12 +202,63 @@ class ArmPolicyBase(nn.Module):
 
 
 class AI2ThorPolicyBase(nn.Module):
-    """ai2thorNet_VAR: waits for the ai2thor profile."""
+    """ai2thorNet_VAR (reference: models/RL/ai2thor_RL_model.py:7-115)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "AI2ThorPolicyBase is not ported yet (ROADMAP 'Modules left to "
-            "port', item 7: the ai2thor profile)")
+    def __init__(self, representation_dim: int = 3, recurrent: bool = True,
+                 recurrent_input_size: int = 128, recurrent_size: int = 1024,
+                 action_hidden_size: int = 128,
+                 img_dim: Sequence[int] = (3, 96, 96), occupancy_grid: int = 9):
+        super().__init__()
+        self.recurrent = recurrent
+        self.convs = _convs(AI2THOR_CONVS, img_dim[0])
+        self.occ_convs = _convs(OCCUPANCY_CONVS, 1)
+        occ_flat = math.prod(conv_grid((1, occupancy_grid, occupancy_grid),
+                                       OCCUPANCY_CONVS))
+        self.occMlp = nn.ModuleList([nn.Linear(occ_flat, 128),
+                                     nn.Linear(128, 256)])
+        self.cnnMlp = _mlp(math.prod(conv_grid(img_dim, AI2THOR_CONVS)),
+                           (512, 256))
+        self.motorMlp = _mlp(representation_dim, (64, 256))
+        self.imgMotorMlp = _mlp(256, (64, recurrent_input_size))
+        if recurrent:
+            self.gru = PolicyGRU(recurrent_input_size, recurrent_size)
+        self.imgMotorMlp2 = _mlp(
+            recurrent_size if recurrent else recurrent_input_size, (256,))
+        self.soundMlp = _mlp(representation_dim, (128, 256, 256))
+        self.fusionMlp = _mlp(256, (512, 256))
+        self.mlp_all = _mlp(256, (256, 128))
+        self.actor = _mlp(128, (128, action_hidden_size))
+        self.critic = _mlp(128, (128, 128))
+        self.critic_linear = orthogonal_linear(128, 1, SQRT2)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        flax_default_init_(self.convs, generator)
+        flax_default_init_(self.occ_convs, generator)
+        flax_default_init_(self.occMlp, generator)
+        init_orthogonal(self, generator)
+        if self.recurrent:
+            self.gru.reset_parameters(generator)
+
+    def forward(self, obs: Dict[str, torch.Tensor], rnn_hx, masks,
+                seq_len: int = 1):
+        x = _run_convs(AI2THOR_CONVS, self.convs, _norm_img(obs["image"]))
+        o = _run_convs(OCCUPANCY_CONVS, self.occ_convs,
+                       _norm_img(obs["occupancy"]))
+        occupancy_feat = _run(self.occMlp, o)
+        image_flatten = _run(self.cnnMlp, x)
+        motor = _run(self.motorMlp, obs["image_feat"])
+        image_motor = _run(self.imgMotorMlp,
+                           image_flatten + motor + occupancy_feat)
+        if self.recurrent:
+            image_motor, rnn_hx = self.gru(image_motor, rnn_hx, masks,
+                                           seq_len)
+        image_motor_rnn = _run(self.imgMotorMlp2, image_motor)
+        sound = _run(self.soundMlp, obs["goal_sound_feat"])
+        fusion = _run(self.fusionMlp, sound + image_flatten)
+        h = _run(self.mlp_all, fusion + image_motor_rnn)
+        hidden_actor = _run(self.actor, h)
+        value = self.critic_linear(_run(self.critic, h))
+        return value, hidden_actor, rnn_hx
 
 
 _BASE_REGISTRY = {
@@ -207,16 +274,21 @@ class Policy(nn.Module):
                  representation_dim: int = 3, robot_state_dim: int = 2,
                  recurrent: bool = True, recurrent_input_size: int = 128,
                  recurrent_size: int = 512, action_hidden_size: int = 128,
-                 img_dim: Sequence[int] = (3, 96, 96)):
+                 img_dim: Sequence[int] = (3, 96, 96), occupancy_grid: int = 9):
         super().__init__()
         self.recurrent = recurrent
         self.recurrent_size = recurrent_size
-        self.base = _BASE_REGISTRY[base_name](
-            representation_dim=representation_dim,
-            robot_state_dim=robot_state_dim, recurrent=recurrent,
-            recurrent_input_size=recurrent_input_size,
-            recurrent_size=recurrent_size,
-            action_hidden_size=action_hidden_size, img_dim=img_dim)
+        cls = _BASE_REGISTRY[base_name]
+        kwargs = dict(representation_dim=representation_dim,
+                      recurrent=recurrent,
+                      recurrent_input_size=recurrent_input_size,
+                      recurrent_size=recurrent_size,
+                      action_hidden_size=action_hidden_size, img_dim=img_dim)
+        if cls is ArmPolicyBase:
+            kwargs["robot_state_dim"] = robot_state_dim
+        else:
+            kwargs["occupancy_grid"] = occupancy_grid
+        self.base = cls(**kwargs)
         self.dist_head = make_head(action_space, action_hidden_size)
 
     @property
@@ -282,4 +354,5 @@ def build_policy(config, action_space) -> Policy:
         recurrent_size=config.RLRecurrentSize,
         action_hidden_size=config.RLActionHiddenSize,
         img_dim=tuple(getattr(config, "img_dim", (3, 96, 96))),
+        occupancy_grid=getattr(config, "RLVisibleGrid", 9),
     )

@@ -11,7 +11,8 @@ place:
 - GAE and the PPO update read the buffers where they lie, and
   after_update copies the tail to the head.
 
-Per step the host uploads the uint8 image, the robot pose and a small
+Per step the host uploads the uint8 image, the robot pose (arm) or the
+uint8 occupancy crop (ai2thor; the policy scales it by 1/255), a small
 packed (N, 4) array [fresh, done, bad_mask, env_reward], and, only when
 some row starts an episode, the goal MFCC. The return-RMS runs in float32
 on the device with the JAX engine's arithmetic: the batch variance is the
@@ -37,7 +38,8 @@ class DeviceRollout:
     """All-device rollout state. Leading axis T+1 for boundary tensors."""
 
     obs_image: torch.Tensor       # (T+1, N, 3, H, W) uint8
-    obs_extra: torch.Tensor       # (T+1, N, ...) robot_pose f32
+    obs_extra: torch.Tensor       # (T+1, N, ...) robot_pose f32 (arm) |
+    #                               occupancy u8 (ai2thor)
     obs_image_feat: torch.Tensor  # (T+1, N, D)
     obs_goal_feat: torch.Tensor   # (T+1, N, D)
     rnn_hx: torch.Tensor          # (T+1, N, H)
@@ -76,10 +78,8 @@ class DeviceRolloutEngine:
                  deterministic: bool = False,
                  generator: Optional[torch.Generator] = None,
                  device: Any = "cpu"):
-        if extra_key != "robot_pose":
-            raise NotImplementedError(
-                "the ai2thor occupancy observation is not ported yet "
-                "(ROADMAP 'Modules left to port', item 7: the ai2thor profile)")
+        if extra_key not in ("robot_pose", "occupancy"):
+            raise ValueError(f"unknown policy observation {extra_key!r}")
         self.var_model = var_model
         self.policy = policy
         self.config = config

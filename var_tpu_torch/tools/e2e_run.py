@@ -1,6 +1,6 @@
-"""End-to-end task-capability run of the port, arm profile (twin of
-scripts/e2e_run.py): collect -> VAR -> PPO -> eval, then the success rate
-with its binomial CI95.
+"""End-to-end task-capability run of the port, arm or ai2thor profile
+(twin of scripts/e2e_run.py): collect -> VAR -> PPO -> eval, then the
+success rate with its binomial CI95.
 
     python -m var_tpu_torch.tools.e2e_run WORK [--env arms] [--device cpu] \\
         [--device-sim] [--num-envs 64] [--rl-steps 12000000] [--rl-lr 3e-5] \\
@@ -12,9 +12,15 @@ The eval stage scores the final checkpoint on the host sims (the fused
 testRL); --device-eval-per-class adds the device-sim evaluator
 (RLDeviceSimEval) at that many episodes per class. Each run updates one
 profile entry of the JSON at --out, under build/ by default. The device
-is CUDA unless --device says otherwise. The ai2thor profile raises (ROADMAP
-item 7); the checkpoint sweep (scripts/success_curve.py,
---select-best-per-class) waits for item 10.
+is CUDA unless --device says otherwise. The grid recipe:
+
+    python -m var_tpu_torch.tools.e2e_run WORK --env ai2thor --device-sim \
+        --num-envs 64 --rl-steps 10000000 --rl-lr 6e-5 \
+        --device-eval-per-class 256 \
+        --set 'pretextCollectNum=[800,800,1600,1600,3200]'
+
+The checkpoint sweep (scripts/success_curve.py, --select-best-per-class)
+waits for ROADMAP item 10.
 """
 from __future__ import annotations
 
@@ -82,7 +88,11 @@ def binom_ci95(rate, n_episodes):
 def scale_eval_quotas(cfg, eval_per_class):
     """Per-class eval quotas of `eval_per_class` episodes per env: the arm
     env derives them from the sound-source sizes (fourInARow.py:92-96),
-    so those are rescaled here, at eval time only."""
+    so those are rescaled here, at eval time only; the grid sim reads
+    testEpisodesPerClass."""
+    if hasattr(cfg, "testEpisodesPerClass"):
+        cfg.override(testEpisodesPerClass=eval_per_class)
+        return
     sizes = cfg.soundSource["size"]
     total = [sum(col) for col in zip(*sizes.values())]
     for ds in sizes:

@@ -1,10 +1,14 @@
 """The RL paths on the card against the same on the CPU (chip_smoke.py
-phases 9 and 13; tests/test_torch_kernels.py at reduced width).
+phases 9, 13 and, for the ai2thor grid, 18; tests/test_torch_kernels.py at
+reduced width). Each check takes the profile from its config: the arm
+(Gaussian actions, the gripper pose) or the ai2thor grid (categorical
+actions, the occupancy crop, the CRNN VAR).
 
 card_against_cpu (the fused path): from the same VAR and policy weights, a
 `config.ppoNumSteps`-step rollout runs through a CUDA engine and a CPU
 engine over one host-env stream (the card's actions drive the envs), with
-the same Gaussian noise, drawn on the CPU. Each step's packed (action, raw
+the same action noise (Gaussian, or Gumbel noise on the logits), drawn on
+the CPU. Each step's packed (action, raw
 reward) is compared, then the stored values, log-probs and normalised
 rewards. The card's buffers are then copied into the CPU engine, so that
 both update from the same batch: GAE and one PPO.update with the same
@@ -16,13 +20,15 @@ CPU). The comparison goes from the card to the CPU: the CPU engine applies
 the card's actions to its sim (the `actions` argument), as phase 9 drives
 the host envs with the card's actions, so that a last-bit difference in an
 action cannot flip a pixel and compound over the steps. Images and
-gripper poses must then be equal; everything else agrees within the
-tolerances below. Both sides then run one PPO.update of the card's batch
-with the same permutations. render_card_against_host holds the card's
-render against the host sim's get_image at seeded states, every pixel.
+gripper poses (arm) or occupancy crops (grid) must then be equal, and the
+success bits and counts; everything else agrees within the tolerances
+below. Both sides then run one PPO.update of the card's batch with the
+same permutations. render_card_against_host holds the card's render
+against the host sim's get_image at seeded states, every pixel.
 
-Tolerances: rtol = atol = 1e-4 for everything but the parameters (IEEE
-float32 on both devices, only the order of summation differs: both checks
+Tolerances: rtol = atol = 1e-4 for everything but the parameters, and
+for the ai2thor CRNN's goal embeddings rtol 1e-3 / atol 2e-4 (BASELINE.md)
+(IEEE float32 on both devices, only the order of summation differs: both checks
 pin the precision through device.resolve_device, since cuDNN's default
 TF32 convolutions alone miss 1e-4). Parameters
 after the update: within 2 * lr per optimizer step + 5e-5, with a median
@@ -48,6 +54,14 @@ def _err(got, want) -> float:
     return ((got - want).abs() / (TOL + TOL * want.abs())).max().item()
 
 
+def _var(cfg, seed: int):
+    """The profile's VAR from `seed`, frozen."""
+    from var_tpu_torch.models.encoders import build_pretext_model
+
+    return build_pretext_model(cfg).reset_parameters(
+        torch.Generator().manual_seed(seed)).eval().requires_grad_(False)
+
+
 def card_against_cpu(config, seed: int = 0, card: str = "cuda") -> dict:
     """Runs the comparison; returns the worst errors (in units of the
     tolerance, see _err), the parameter differences and `ok`. `card` is
@@ -55,8 +69,9 @@ def card_against_cpu(config, seed: int = 0, card: str = "cuda") -> dict:
     where there is no card)."""
     from var_tpu_torch.config import gym_register
     from var_tpu_torch.device import resolve_device
+    from var_tpu_torch.envs.spaces import Discrete
     from var_tpu_torch.envs.vec.factory import make_vec_envs
-    from var_tpu_torch.models.encoders import VARPretextNet
+    from var_tpu_torch.models.distributions import gumbel_noise
     from var_tpu_torch.models.policy import build_policy
     from var_tpu_torch.rl.ppo import PPO, PPOConfig
     from var_tpu_torch.rl.rollout_device import DeviceRolloutEngine
@@ -66,27 +81,34 @@ def card_against_cpu(config, seed: int = 0, card: str = "cuda") -> dict:
     T, N = cfg.ppoNumSteps, cfg.RLNumEnvs
     gym_register(cfg)
     envs = make_vec_envs(cfg.RLEnvName, cfg.RLEnvSeed, N, None, True, cfg)
-    var = VARPretextNet(cfg.representationDim).reset_parameters(
-        torch.Generator().manual_seed(seed)).eval().requires_grad_(False)
+    var = _var(cfg, seed)
     policy = build_policy(cfg, envs.action_space).reset_parameters(
         torch.Generator().manual_seed(seed + 1))
+    raw_obs = envs.reset()
+    is_arm = cfg.name == "ArmConfig"
+    extra_key = "robot_pose" if is_arm else "occupancy"
+    discrete = isinstance(envs.action_space, Discrete)
     sides = []  # (device, engine, ppo): the card, then the CPU
     for dev in (card, "cpu"):
         pol = copy.deepcopy(policy).to(dev)
         engine = DeviceRolloutEngine(
-            copy.deepcopy(var).to(dev), pol, cfg, T, N, "robot_pose", (2,),
-            torch.float32, envs.action_space.shape, torch.float32,
+            copy.deepcopy(var).to(dev), pol, cfg, T, N, extra_key,
+            np.asarray(raw_obs[extra_key]).shape[1:],
+            torch.float32 if is_arm else torch.uint8,
+            (1,) if discrete else envs.action_space.shape,
+            torch.int32 if discrete else torch.float32,
             gamma=cfg.RLGamma, device=dev)
         sides.append((dev, engine, PPO(pol, PPOConfig.from_config(cfg))))
     dev_engine, cpu_engine = sides[0][1], sides[1][1]
     noise_gen = torch.Generator().manual_seed(seed + 2)
 
     def noise():
+        if discrete:
+            return gumbel_noise((N, envs.action_space.n), noise_gen)
         return torch.randn((N,) + envs.action_space.shape,
                            generator=noise_gen)
 
     errs = {"packed": 0.0, "values": 0.0, "log_probs": 0.0, "rewards": 0.0}
-    raw_obs = envs.reset()
     eps = noise()
     action = dev_engine.init(raw_obs, eps.to(card))
     errs["packed"] = _err(cpu_engine.init(raw_obs, eps), action)
@@ -168,11 +190,10 @@ def device_sim_card_against_cpu(config, seed: int = 0, card: str = "cuda",
     both engines when given."""
     from var_tpu_torch.data.audio_store import AudioStore
     from var_tpu_torch.device import resolve_device
-    from var_tpu_torch.envs.spaces import Box
-    from var_tpu_torch.models.encoders import VARPretextNet
     from var_tpu_torch.models.policy import build_policy
-    from var_tpu_torch.rl.device_sim import DeviceSimEngine, init_rms
+    from var_tpu_torch.rl.device_sim import init_rms
     from var_tpu_torch.rl.ppo import PPO, PPOConfig
+    from var_tpu_torch.train.rl import device_sim_profile
 
     cfg = config
     resolve_device(card)
@@ -180,33 +201,42 @@ def device_sim_card_against_cpu(config, seed: int = 0, card: str = "cuda",
     if audio is None:
         audio = AudioStore(cfg)
         audio.loadData()
-    var = VARPretextNet(cfg.representationDim).reset_parameters(
-        torch.Generator().manual_seed(seed)).eval().requires_grad_(False)
-    high = np.ones(cfg.RLActionDim, np.float32)
-    policy = build_policy(cfg, Box(-high, high)).reset_parameters(
+    var = _var(cfg, seed)
+    action_space, engine_cls = device_sim_profile(cfg)
+    policy = build_policy(cfg, action_space).reset_parameters(
         torch.Generator().manual_seed(seed + 1))
     sides = []  # (engine, ppo): the card, then the CPU
     for dev in (card, "cpu"):
         pol = copy.deepcopy(policy).to(dev)
-        engine = DeviceSimEngine(
+        engine = engine_cls(
             copy.deepcopy(var).to(dev), pol, cfg, T, N, audio=audio,
             generator=torch.Generator(device=dev).manual_seed(seed + 2),
             device=dev)
         sides.append((engine, PPO(pol, PPOConfig.from_config(cfg))))
     (d_eng, _), (c_eng, _) = sides
+    # the goal bank: the arm's sound CNN at 1e-4, the ai2thor CRNN's
+    # embeddings at their allowance (rtol 1e-3 / atol 2e-4); then the CPU
+    # takes the card's bank, so that what follows compares the sim, the
+    # policy and the update alone
+    is_arm = cfg.name == "ArmConfig"
+    errs = {"goal_bank": (_err if is_arm else _crnn_err)(
+        c_eng.goal_bank, d_eng.goal_bank.cpu())}
+    c_eng.goal_bank = d_eng.goal_bank.cpu()
 
     # draws made on the CPU, the same on both sides
     draws = c_eng.draw_collect()
     d_rms, d_batch, d_raw = d_eng.collect(init_rms(N, card), _to(draws, card))
     c_rms, c_batch, c_raw = c_eng.collect(
         init_rms(N), draws, actions=d_batch["actions"].cpu())
+    # the sim's state as the policy sees it: equal, not close
+    exact = "robot_pose" if is_arm else "occupancy"
     mismatch = {
         "pixels": int((c_batch["obs"]["image"]
                        != d_batch["obs"]["image"].cpu()).sum()),
-        "poses": int((c_batch["obs"]["robot_pose"]
-                      != d_batch["obs"]["robot_pose"].cpu()).sum())}
-    errs = {"image_feats": _err(c_batch["obs"]["image_feat"],
-                                d_batch["obs"]["image_feat"].cpu())}
+        "poses" if is_arm else "occupancy": int(
+            (c_batch["obs"][exact] != d_batch["obs"][exact].cpu()).sum())}
+    errs["image_feats"] = _err(c_batch["obs"]["image_feat"],
+                               d_batch["obs"]["image_feat"].cpu())
     for key in ("value_preds", "old_log_probs", "returns"):
         errs[key] = _err(c_batch[key], d_batch[key].cpu())
     errs["rewards"] = _err(c_eng.rewards, d_eng.rewards.cpu())
@@ -234,11 +264,23 @@ def device_sim_card_against_cpu(config, seed: int = 0, card: str = "cuda",
     return report
 
 
+def _crnn_err(got, want) -> float:
+    """Largest |got - want| beyond rtol 1e-3 * |want|, in units of atol
+    2e-4: <= 1 means within the CRNN's allowance (rtol 1e-3 / atol
+    2e-4)."""
+    got = torch.as_tensor(np.asarray(got)).double()
+    want = torch.as_tensor(np.asarray(want)).double()
+    return ((got - want).abs() / (2e-4 + 1e-3 * want.abs())).max().item()
+
+
 def render_card_against_host(config, n: int = 1000, seed: int = 0,
                              card: str = "cuda") -> dict:
-    """`render_chw` on the card against FourInARowSim.get_image at `n`
-    seeded states (the host sim's own reset, the gripper uniform over the
-    workspace): the count of states with any pixel that differs."""
+    """`render_chw` on the card against the host sim's get_image at `n`
+    seeded states: the count of states with any pixel that differs. Arm:
+    the host sim's own reset, the gripper uniform over the workspace.
+    Grid: a seeded floor plan, free cell, heading and object states."""
+    if config.name != "ArmConfig":
+        return _grid_render_card_against_host(config, n, seed, card)
     from var_tpu_torch.envs import arm_sim_device as sim
     from var_tpu_torch.envs.arm_sim import FourInARowSim
 
@@ -265,3 +307,41 @@ def render_card_against_host(config, n: int = 1000, seed: int = 0,
         bad += bool((np.transpose(host.get_image(), (2, 0, 1))
                      != imgs[i]).any())
     return {"states": n, "states_differing": bad, "ok": bad == 0}
+
+
+def _grid_render_card_against_host(cfg, n: int, seed: int, card: str
+                                   ) -> dict:
+    """Also holds local_occupancy and visible_mask against the host's
+    get_local_occupancy_map and visible_objects at the same states."""
+    from var_tpu_torch.envs import grid_sim_device as gsim
+    from var_tpu_torch.envs.grid_sim import GridHouseSim
+
+    bank = gsim.build_plan_bank(cfg, card)
+    plans = list(cfg.allScene[next(iter(cfg.allTasks))])
+    host = GridHouseSim(cfg)
+    host.seed(seed)
+    states, want = [], []
+    for _ in range(n):
+        k = int(host.np_random.randint(len(plans)))
+        host.floor_plan = plans[k]
+        host._build_world()
+        host._domain_randomization()  # teleport, heading, object states
+        states.append((k, *host.pos, int(host.rot) // 45,
+                       *(host.objects[o]["isToggled"] for o in gsim.OBJ_NAMES)))
+        want.append((np.transpose(host.get_image(), (2, 0, 1)),
+                     host.get_local_occupancy_map(),
+                     [o in host.visible_objects() for o in gsim.OBJ_NAMES]))
+    st = torch.tensor(states, dtype=torch.int64, device=card)
+    plan, pos, rot, tog = st[:, 0], st[:, 1:3], st[:, 3], st[:, 4:6].bool()
+    imgs = gsim.render_chw(bank, plan, pos, rot, tog).cpu().numpy()
+    occs = gsim.local_occupancy(bank, plan, pos, rot,
+                                cfg.RLVisibleGrid)[:, 0].cpu().numpy()
+    vis = gsim.visible_mask(bank, plan, pos, rot,
+                            float(cfg.RLVisibilityDistance)).cpu().numpy()
+    bad = {"states_differing": 0, "occupancy_differing": 0,
+           "visibility_differing": 0}
+    for i, (img, occ, v) in enumerate(want):
+        bad["states_differing"] += bool((img != imgs[i]).any())
+        bad["occupancy_differing"] += bool((occ != occs[i]).any())
+        bad["visibility_differing"] += bool((np.asarray(v) != vis[i]).any())
+    return {"states": n, **bad, "ok": not any(bad.values())}

@@ -335,7 +335,10 @@ class PretextTrainer:
             print("Number of pairs for each object", collected)
             for _episode in range(cfg.pretextDataEpisode):
                 for _ in range(cfg.pretextEnvMaxSteps):
+                    # the grid pretext sim teleports at random and takes
+                    # no action; the arm's takes a zero vector
                     action = [np.zeros(cfg.pretextActionDim, np.float32)
+                              if hasattr(cfg, "pretextActionDim") else 0
                               for _ in range(cfg.pretextNumEnvs)]
                     envs.step(action)
                     harvest(observations)

@@ -6,8 +6,9 @@ var_tpu/train/rl.py: the fusedRollout and the device-sim paths).
   act; one packed readback per env step) -> GAE -> the PPO update on the
   rollout buffers; deterministic per-class evaluation through the same
   fused step;
-- RLDeviceSimRollout / RLDeviceSimEval: the arm sim itself on the device
-  (rl/device_sim.py), one small read per PPO update or per evaluation;
+- RLDeviceSimRollout / RLDeviceSimEval: the sim itself on the device (the
+  arm's DeviceSimEngine, the ai2thor grid's GridDeviceSimEngine,
+  rl/device_sim.py), one small read per PPO update or per evaluation;
 - CSV progress, checkpoints and the success-rate CSV for both.
 
 The other modes of the JAX package wait for later slices and raise
@@ -129,17 +130,19 @@ class RLTrainer:
     def _fused_engine(self, envs, raw_obs, num_steps: int, num_envs: int,
                       deterministic: bool = False):
         cfg = self.config
-        if cfg.name != "ArmConfig":
-            raise _not_ported("the ai2thor RL path", "item 7: the ai2thor "
-                              "profile")
+        # the policy's extra observation: the arm's gripper pose, or the
+        # grid's uint8 egocentric occupancy crop
+        is_arm = cfg.name == "ArmConfig"
+        extra_key = "robot_pose" if is_arm else "occupancy"
         if isinstance(envs.action_space, S.Discrete):
             action_shape, action_dtype = (1,), torch.int32
         else:
             action_shape, action_dtype = envs.action_space.shape, torch.float32
         return DeviceRolloutEngine(
             self.pretext_model, self.policy, cfg, num_steps, num_envs,
-            "robot_pose", np.asarray(raw_obs["robot_pose"]).shape[1:],
-            torch.float32, action_shape, action_dtype, gamma=cfg.RLGamma,
+            extra_key, np.asarray(raw_obs[extra_key]).shape[1:],
+            torch.float32 if is_arm else torch.uint8, action_shape,
+            action_dtype, gamma=cfg.RLGamma,
             deterministic=deterministic, generator=self.generator,
             device=self.device)
 
@@ -224,19 +227,10 @@ class RLTrainer:
             raise _not_ported("RLPipelinedRollout", "item 3")
         return self._train_fused(total_steps, log_interval)
 
-    def _arm_action_space(self):
-        if self.config.name != "ArmConfig":
-            raise _not_ported("the grid device sim", "item 7: the ai2thor "
-                              "profile")
-        high = np.ones(self.config.RLActionDim, np.float32)
-        return S.Box(-high, high, dtype=np.float32)
-
     def setup_device_sim(self):
         """Everything _train_device_sim does before its loop: the policy
         from RLEnvSeed (or the fine-tune checkpoint), the engine, the PPO
         state. Returns the engine."""
-        from var_tpu_torch.rl.device_sim import DeviceSimEngine
-
         cfg = self.config
         if cfg.ppoNumSteps != cfg.RLEnvMaxSteps:
             raise ValueError(
@@ -246,8 +240,9 @@ class RLTrainer:
         if self.pretext_model is None:
             raise RuntimeError("load_pretext() first: the reward needs the "
                                "frozen VAR")
-        self._build_policy(self._arm_action_space())
-        engine = DeviceSimEngine(
+        action_space, engine_cls = device_sim_profile(self.config)
+        self._build_policy(action_space)
+        engine = engine_cls(
             self.pretext_model, self.policy, cfg, cfg.ppoNumSteps,
             cfg.RLNumEnvs, generator=self.generator, device=self.device)
         resume = (None, None, None)
@@ -484,15 +479,14 @@ class RLTrainer:
         """The device evaluator (policy net + sim engine) for batches of
         `num_envs` episodes; one engine evaluates any number of
         checkpoints (load each into self.policy)."""
-        from var_tpu_torch.rl.device_sim import DeviceSimEngine
-
         if self.pretext_model is None:
             raise RuntimeError("load_pretext() first: the reward needs the "
                                "frozen VAR")
-        self._build_policy(self._arm_action_space())
+        action_space, engine_cls = device_sim_profile(self.config)
+        self._build_policy(action_space)
         # the eval draws' own stream, as the JAX package's PRNGKey(1)
         generator = torch.Generator(device=self.device).manual_seed(1)
-        return DeviceSimEngine(
+        return engine_cls(
             self.pretext_model, self.policy, self.config,
             int(self.config.RLEnvMaxSteps), int(num_envs),
             generator=generator, device=self.device)
@@ -501,7 +495,8 @@ class RLTrainer:
                          policy_path: Optional[str] = None,
                          num_envs: int = 1):
         """Deterministic evaluation on the device sim: one eval_batch per
-        round-robin slot, all `num_envs` envs commanded the same class,
+        round-robin slot, all `num_envs` envs commanded the same class (the
+        arm's intent, the grid's task),
         per-class quotas as the host testRL derives them; the results are
         read once, after the last batch. The CSV is
         test_<ckpt>_devicesim.csv, so host-evaluated results stay apart
@@ -581,6 +576,21 @@ class RLTrainer:
         if cfg.RLTrain:
             return self.trainRL()
         return self.testRL()
+
+
+def device_sim_profile(cfg):
+    """(action space, engine class) of the profile's device sim: the arm's
+    2-D Box and DeviceSimEngine, or the grid's Discrete over allActions
+    and GridDeviceSimEngine."""
+    from var_tpu_torch.rl.device_sim import (
+        DeviceSimEngine,
+        GridDeviceSimEngine,
+    )
+
+    if cfg.name == "ArmConfig":
+        high = np.ones(cfg.RLActionDim, np.float32)
+        return S.Box(-high, high, dtype=np.float32), DeviceSimEngine
+    return S.Discrete(len(cfg.allActions)), GridDeviceSimEngine
 
 
 def _eval_size_per_class(cfg):
