@@ -88,6 +88,29 @@ after the arm's device memory is released:
 19. where a grid device-sim collect and its update spend their time, as
    phase 14.
 
+Phases 20-23 run the arm profile's E2E tools and the paths ported with
+them, at full arm width, on phase 4's VAR:
+20. legs: `python -m var_tpu_torch.tools.e2e_run --stages rl --leg-steps`
+   on the device sim at 64 envs, a run of 3 PPO updates split 2 + 1 with
+   RLLrDecay='linear': labels 00000-00002 and the done marker only after
+   leg 2; the optimizer steps' counts continue across the legs and every
+   step's LR is the unsplit run's schedule; leg 2's first optimizer step
+   starts from leg 1's last parameters, Adam count and moments, exactly;
+21. the sweep: tools/success_curve.py through e2e_run's selection over
+   those checkpoints at 256 episodes a class (1024 each), 128 envs: the
+   curve CSV's rows and columns, the rl_model/best link;
+22. self-improvement: one 'scratch' round of train/self_improve.py at full
+   arm width with audioBackend='pallas' (collect 384 triplets, 2 VAR
+   epochs at batch 128, 1 device-sim PPO update at 64 envs resuming from
+   phase 20's newest checkpoint): 2 mel-log-DCT launches per VAR step, the
+   kernel held against its plain version on the first input the path gave
+   it, the new VAR as the RL load target and the label 00003;
+23. the reward-wrapper path (fusedRollout=False): 2 PPO updates at 8 envs
+   x 100 steps through `python -m var_tpu_torch.rl`, a wrapped eval of 16
+   episodes, then card against CPU (tools/rl_check.py
+   wrapped_card_against_cpu: a 10-step rollout, each step's act and image
+   features, one PPO update).
+
 It then prints the card's name and power limit as nvidia-smi gives them,
 one JSON line with the kernels' numbers, and, last, one JSON line
 {"ok": true, "device": {...}}. Scratch output goes to build/chip_smoke/.
@@ -931,6 +954,257 @@ def run_profile(torch, np, mld, env, kernel):
     torch.cuda.empty_cache()
 
 
+ARM_VAR = RUN_DIR / "arms" / "model" / "4"  # phase 4's VAR
+
+
+def legs_phase(torch, mld):
+    """Phase 20: a run of 3 device-sim updates in two legs (2 + 1)."""
+    from var_tpu_torch.rl.ppo import PPO, PPOConfig
+    from var_tpu_torch.tools import e2e_run
+    from var_tpu_torch.train.checkpoint import load_checkpoint
+
+    work = RUN_DIR / "legs"
+    shutil.copytree(ARM_VAR, work / "var_model" / "4")
+    per_update = DS_ENVS * PROFILES["arms"]["steps"]
+    steps = []  # (leg, count, lr) of every optimizer step
+    starts = {}  # leg -> the state entering its first optimizer step
+    apply_adam = PPO._apply_adam
+
+    def spy(self, state, grads):
+        leg = len(results) + 1
+        if leg not in starts:
+            starts[leg] = (
+                state.opt_state.count,
+                {k: v.detach().cpu().clone() for k, v in
+                 state.params.items()},
+                {k: v.cpu().clone() for k, v in state.opt_state.mu.items()},
+                {k: v.cpu().clone() for k, v in state.opt_state.nu.items()})
+        steps.append((leg, state.opt_state.count,
+                      self.lr_at(state.opt_state.count)))
+        return apply_adam(self, state, grads)
+
+    results = []
+    argv = [str(work), "--device-sim", "--num-envs", str(DS_ENVS),
+            "--rl-steps", str(3 * per_update), "--var-epochs", "5",
+            "--stages", "rl", "--out", str(work / "e2e.json"), "--set",
+            "RLModelSaveInterval=1", "RLLrDecay='linear'"]
+    PPO._apply_adam = spy
+    mld.mel_log_dct.launches = 0
+    t0 = time.perf_counter()
+    try:
+        for leg_updates in (2, 1):
+            results.append(e2e_run.main(
+                argv + ["--leg-steps", str(leg_updates * per_update)]))
+    finally:
+        PPO._apply_adam = apply_adam
+    wall = time.perf_counter() - t0
+    LAUNCHES["arms legs"] = mld.mel_log_dct.launches
+    rl_dir = work / "rl_model"
+    labels = sorted(p.name for p in rl_dir.iterdir() if p.name.isdigit())
+    legs = [r["leg"] for r in results]
+    print(f"legs: {legs}; labels {labels}; {len(steps)} optimizer steps, "
+          f"LR {steps[0][2]:.6g} -> {steps[-1][2]:.6g}; mel_log_dct "
+          f"launches {LAUNCHES['arms legs']}; wall {wall:.2f} s", flush=True)
+    if [(g["updates_done"], g["done"]) for g in legs] != [(2, False),
+                                                          (3, True)] \
+            or labels != ["00000", "00001", "00002"] \
+            or not (rl_dir / e2e_run.DONE_MARKER).exists() \
+            or LAUNCHES["arms legs"] != 0:
+        fail("the legs did not continue the run")
+    cfg = e2e_run.build_config("arms", str(work), 3 * per_update,
+                               num_envs=DS_ENVS, var_epochs=5,
+                               device_sim=True, extra_set=argv[-2:])
+    whole = PPO(None, PPOConfig.from_config(cfg))
+    if [c for _, c, _ in steps] != list(range(len(steps))) \
+            or any(lr != whole.lr_at(c) for _, c, lr in steps) \
+            or not steps[-1][2] < steps[0][2]:
+        fail("the legs' LR is not the unsplit run's")
+    end1 = load_checkpoint(str(rl_dir / "00001"))
+    count, params, mu, nu = starts[2]
+    same = (count == end1["opt_state"]["count"] and all(
+        torch.equal(params[k], v) and torch.equal(
+            mu[k], end1["opt_state"]["mu"][k]) and torch.equal(
+            nu[k], end1["opt_state"]["nu"][k])
+        for k, v in end1["params"].items()))
+    print(f"legs: leg 2 starts at optimizer step {count} from leg 1's last "
+          f"parameters and moments: {same}", flush=True)
+    if not same:
+        fail("leg 2 did not start from leg 1's last state")
+    return work
+
+
+def sweep_phase(torch, mld, work):
+    """Phase 21: the checkpoint sweep and selection over phase 20's run."""
+    from var_tpu_torch.tools import e2e_run
+
+    mld.mel_log_dct.launches = 0
+    t0 = time.perf_counter()
+    sel = e2e_run.select_checkpoint(
+        "arms", str(work), 256, 128, 1,
+        ["RLModelSaveInterval=1", "RLLrDecay='linear'"], "cuda")
+    wall = time.perf_counter() - t0
+    LAUNCHES["arms sweep"] = mld.mel_log_dct.launches
+    with open(sel["curve_csv"]) as f:
+        text = f.read()
+    rows = list(csv.DictReader(text.splitlines()))
+    print(f"sweep: {len(rows)} checkpoints x {sel['episodes_per_point']} "
+          f"episodes in {wall:.2f} s; curve CSV:\n{text.strip()}", flush=True)
+    if len(rows) != 3 or sel["episodes_per_point"] != 1024 \
+            or list(rows[0]) != ["checkpoint", "update", "env_steps",
+                                 "success_rate", "ci95", "class_0",
+                                 "class_1", "class_2", "class_3"] \
+            or not (work / "rl_model" / "best").is_symlink() \
+            or LAUNCHES["arms sweep"] != 0:
+        fail("bad sweep output")
+
+
+def self_improve_phase(torch, mld, work):
+    """Phase 22: one scratch self-improvement round at full arm width, the
+    VAR retrain through the CUDA kernel, held against its plain version on
+    the path's own input."""
+    from var_tpu_torch.config import gym_register, main_config
+    from var_tpu_torch.train import pretext as tpretext
+    from var_tpu_torch.train.checkpoint import latest_checkpoint
+    from var_tpu_torch.train.self_improve import self_improve
+
+    run = RUN_DIR / "self_improve"
+    shutil.copytree(work / "rl_model", run / "rl_model", symlinks=True)
+    cfg = main_config(env="arms")
+    cfg.override(
+        pretextDataDir=[str(run / "data")],
+        pretextModelSaveDir=str(run / "var_model"),
+        pretextModelLoadDir=str(ARM_VAR), RLModelSaveDir=str(run / "rl_model"),
+        audioBackend="pallas", pretextDataset="VARDataset",
+        pretextModelFineTune=False, vecEnvBackend="dummy",
+        pretextCollectNum=[64, 64, 64, 64, 128], pretextModelSaveInterval=1,
+        RLDeviceSimRollout=True, RLNumEnvs=DS_ENVS, RLModelSaveInterval=1)
+    gym_register(cfg, env="arms")
+    from var_tpu_torch.ops import audio
+
+    kernel, trainers, seen = mld.mel_log_dct, [], []
+    stft, train_rep = (audio._stft_power_gemm,
+                       tpretext.PretextTrainer.trainRepresentation)
+
+    def capture(wav, params, *args):
+        # the power spectrogram the path hands the kernel first
+        power = stft(wav, params, *args)
+        if not seen:
+            seen.append((power.detach().clone(), params))
+        return power
+
+    def keep(self, *args, **kwargs):
+        trainers.append(self)
+        return train_rep(self, *args, **kwargs)
+
+    audio._stft_power_gemm = capture
+    tpretext.PretextTrainer.trainRepresentation = keep
+    kernel.launches = 0
+    t0 = time.perf_counter()
+    try:
+        self_improve(cfg, rounds=1, env="arms", pretext_epochs=2,
+                     rl_steps=DS_ENVS * PROFILES["arms"]["steps"],
+                     var_mode="scratch", device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        audio._stft_power_gemm = stft
+        tpretext.PretextTrainer.trainRepresentation = train_rep
+    wall = time.perf_counter() - t0
+    launches = LAUNCHES["arms self-improve"] = kernel.launches
+    var_steps = trainers[0].step
+    newest = latest_checkpoint(str(run / "rl_model"))
+    print(f"self-improve: {var_steps} VAR steps at batch "
+          f"{cfg.pretextTrainBatchSize}, mel_log_dct launches {launches}; "
+          f"RL load target {cfg.pretextModelLoadDir}; newest policy "
+          f"{newest}; wall {wall:.2f} s", flush=True)
+    if var_steps < 4 or launches != 2 * var_steps \
+            or cfg.pretextModelLoadDir != str(run / "var_model" / "1") \
+            or not newest.endswith("00003") \
+            or cfg.pretextTrainBatchSize != 128:
+        fail("the self-improvement round did not run as expected")
+    power, params = seen[0]
+    with torch.no_grad():
+        got = kernel(power, params)
+        want = mld.mel_log_dct_reference(power, params)
+    err = (got - want).abs().max().item()
+    print(f"self-improve: the kernel on the path's input "
+          f"{tuple(power.shape)} (stride {power.stride()}): max abs err "
+          f"{err:.3e} against the plain version", flush=True)
+    if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+        fail("the kernel disagrees with its plain version on the "
+             "self-improvement path")
+
+
+def wrapped_phase(torch, mld):
+    """Phase 23: the reward-wrapper path, train, eval, card against CPU."""
+    from var_tpu_torch.config import main_config
+    from var_tpu_torch.rl import main as rl_main
+    from var_tpu_torch.tools.rl_check import wrapped_card_against_cpu
+
+    rl_dir, steps = RUN_DIR / "wrapped", PROFILES["arms"]["steps"]
+    common = [f'pretextModelLoadDir="{ARM_VAR}"', f'RLModelSaveDir="{rl_dir}"',
+              'vecEnvBackend="dummy"', "fusedRollout=False",
+              "RLModelFineTune=False"]
+    mld.mel_log_dct.launches = 0
+    t0 = time.perf_counter()
+    trainer = rl_main(["--env", "arms", "--set", *common, "RLTrain=True",
+                       f"RLTotalSteps={2 * 8 * steps}",
+                       "RLModelSaveInterval=1", "RLLogInterval=1"])
+    wall = time.perf_counter() - t0
+    cfg = trainer.config
+    with open(rl_dir / "progress.csv") as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r[k]) for r in rows
+              for k in ("loss/value_loss", "loss/policy_loss",
+                        "loss/policy_entropy")]
+    rates = [n / t for n, t in trainer.update_stats]
+    print(f"wrapped train: {len(trainer.update_stats)} PPO updates at "
+          f"{_width(cfg)}; env-steps/s {[round(r, 1) for r in rates]}; "
+          f"losses {losses}; p50 ms: policy_act "
+          f"{trainer.timer.p50_ms('policy_act'):.4f}, env_step "
+          f"{trainer.timer.p50_ms('env_step'):.4f}, ppo_update "
+          f"{trainer.timer.p50_ms('ppo_update'):.4f}; wall {wall:.2f} s",
+          flush=True)
+    if _width(cfg) != (8, steps, 512, 128, 128, 4, 2, (3, 96, 96), 3) \
+            or len(trainer.update_stats) != 2 or len(rows) != 2 \
+            or not all(math.isfinite(v) for v in losses):
+        fail("the wrapped RL phase did not run at full width")
+    eval_cfg = copy.deepcopy(cfg)
+    eval_cfg.override(RLTrain=False)
+    from var_tpu_torch.train.rl import RLTrainer
+
+    evaluator = RLTrainer(eval_cfg, device="cuda")
+    evaluator.load_pretext()
+    rate = evaluator.testRL(num_episodes=16, policy_path=str(rl_dir / "00001"),
+                            num_envs=8)
+    LAUNCHES["arms wrapped"] = mld.mel_log_dct.launches
+    with open(rl_dir / "test_00001.csv") as f:
+        n_eval = len(list(csv.DictReader(f)))
+    print(f"wrapped eval: {n_eval} episodes, success rate {rate}; "
+          f"mel_log_dct launches {LAUNCHES['arms wrapped']}", flush=True)
+    if n_eval != 16 or not 0.0 <= rate <= 1.0 \
+            or LAUNCHES["arms wrapped"] != 0:
+        fail("bad wrapped eval output")
+    check = main_config(env="arms")
+    check.override(RLTrain=True, ppoNumSteps=10, RLEnvMaxSteps=5,
+                   vecEnvBackend="dummy", fusedRollout=False)
+    t0 = time.perf_counter()
+    report = wrapped_card_against_cpu(check)
+    print(f"wrapped, card vs cpu (8 envs x 10 steps, full width): {report} "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    if not report["ok"]:
+        fail("the wrapped path differs between the card and the CPU")
+
+
+def slice6_phases(torch, mld):
+    """Phases 20-23."""
+    work = legs_phase(torch, mld)
+    sweep_phase(torch, mld, work)
+    self_improve_phase(torch, mld, work)
+    wrapped_phase(torch, mld)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -960,6 +1234,9 @@ def main():
         run_profile(torch, np, mld, env, kernel)
         print(f"{env}: all phases in {time.perf_counter() - t_env:.1f} s",
               flush=True)
+    t0 = time.perf_counter()
+    slice6_phases(torch, mld)
+    print(f"phases 20-23 in {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernel["launches_by_path"] = dict(LAUNCHES)
     print(line)

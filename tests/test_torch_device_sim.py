@@ -505,7 +505,7 @@ def test_eval_trajectory_matches_host_replay(engines):
 def test_refusals_name_their_reason(engines):
     _, tcfg, _, _, teng = engines
     for engine in (DeviceSimEngine, GridDeviceSimEngine):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*parallelism"):
             engine(teng.var_model, teng.policy, tcfg, T, N, mesh={"dp": 2})
     _, sound = _configs(RLRewardSoundSound=True)
     with pytest.raises(NotImplementedError, match="RLRewardSoundSound"):

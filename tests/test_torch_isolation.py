@@ -79,3 +79,14 @@ def test_every_module_imports_with_jax_and_var_tpu_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_e2e_recipe_modules_are_covered():
+    """The legs, the sweep, self-improvement, the probes and the
+    reward-wrapper path's modules are among those checked here."""
+    modules = set(_modules())
+    for name in ("tools.e2e_run", "tools.success_curve", "tools.var_probe",
+                 "tools.grid_probe", "tools.self_improve_demo",
+                 "train.self_improve", "ops.running_stats", "envs.vec.base",
+                 "envs.vec.wrappers", "rl.reward", "rl.storage"):
+        assert f"var_tpu_torch.{name}" in modules

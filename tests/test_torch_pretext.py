@@ -309,7 +309,7 @@ def test_vec_env_factory_backends(tmp_path):
                              audio=audio)
         assert isinstance(envs, DummyVecEnv) and envs.num_envs == 2
         envs.close()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="frozen VAR"):
         make_vec_envs(cfg.pretextEnvName, 1, 2, None, False, cfg, audio=audio)
     cfg.override(vecEnvBackend="shmem")
     with pytest.raises(NotImplementedError):

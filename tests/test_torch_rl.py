@@ -333,8 +333,7 @@ def test_resume_continues_adam_state_and_labels(var_checkpoint):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("fusedRollout", False), ("RLPipelinedRollout", True),
-    ("meshShape", {"dp": 2})])
+    ("RLPipelinedRollout", True), ("meshShape", {"dp": 2})])
 def test_unported_modes_raise_naming_their_roadmap_item(knob, value):
     _, tcfg = _configs(RLTrain=True, **{knob: value})
     trainer = trl.RLTrainer(tcfg, device="cpu")
@@ -354,7 +353,7 @@ def test_entry_point_needs_cuda_or_the_cpu_flag(var_checkpoint):
 
 def test_manual_control_raises_naming_its_roadmap_item():
     _, tcfg = _configs(RLManualControl=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*manual control"):
         trl.RLTrainer(tcfg, device="cpu").run()
 
 

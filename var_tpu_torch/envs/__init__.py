@@ -22,8 +22,8 @@ def make_entry_points(config, env: str):
         if backend == "ithor":
             raise NotImplementedError(
                 "simBackend='ithor' (the AI2-THOR Unity adapter) is not "
-                "ported; use 'builtin' (ROADMAP 'Modules left to port', "
-                "item 7)")
+                "ported; use 'builtin' (ROADMAP 'Modules left to port': "
+                "not queued, it needs the Unity server)")
         from .grid_sim import GridHousePretextSim, GridHouseSim
 
         return GridHousePretextSim, GridHouseSim

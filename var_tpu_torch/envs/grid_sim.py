@@ -87,7 +87,8 @@ class GridHouseSim(Env):
         if c.render or c.episodeImgSaveInterval > 0:
             raise NotImplementedError(
                 "render and episode-image recording are not ported yet "
-                "(ROADMAP 'Modules left to port', item 4)")
+                "(ROADMAP 'Modules left to port': episode-image "
+                "recording and render playback)")
 
         d = OrderedDict(
             [

@@ -1,6 +1,7 @@
 """Vectorized-environment protocol (port of var_tpu/envs/vec/base.py):
 batched reset / step_async / step_wait over N environments with dict
-observations."""
+observations, and the delegating wrappers (reference:
+Envs/vec_env/vec_env.py:31-190)."""
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
@@ -42,9 +43,80 @@ class VecEnv(ABC):
         self.step_async(actions)
         return self.step_wait()
 
+    def get_images(self):
+        """One RGB frame per environment (reference: vec_env.py:123-127)."""
+        raise NotImplementedError
+
+    def render(self, mode="human"):
+        """Every env's frame tiled into one roughly square image
+        (reference: vec_env.py:112-121); both modes return the array."""
+        from .wrappers import tile_images
+
+        try:
+            imgs = [im for im in self.get_images() if im is not None]
+        except NotImplementedError:
+            return None
+        return tile_images(imgs) if imgs else None
+
     @property
     def unwrapped(self):
         return self
+
+
+class VecEnvWrapper(VecEnv):
+    """Delegating wrapper (reference: vec_env.py:140-190)."""
+
+    def __init__(self, venv, observation_space=None, action_space=None):
+        self.venv = venv
+        super().__init__(
+            num_envs=venv.num_envs,
+            observation_space=observation_space or venv.observation_space,
+            action_space=action_space or venv.action_space,
+        )
+
+    def step_async(self, actions):
+        self.venv.step_async(actions)
+
+    @abstractmethod
+    def reset(self):
+        ...
+
+    @abstractmethod
+    def step_wait(self):
+        ...
+
+    def close(self):
+        return self.venv.close()
+
+    def render(self, mode="human"):
+        return self.venv.render(mode)
+
+    def get_images(self):
+        return self.venv.get_images()
+
+    @property
+    def unwrapped(self):
+        return self.venv.unwrapped
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return getattr(self.venv, name)
+
+
+class VecEnvObservationWrapper(VecEnvWrapper):
+    """A wrapper that transforms only observations, through `process()`
+    (reference: vec_env.py:155-190)."""
+
+    def process(self, obs):
+        raise NotImplementedError
+
+    def reset(self):
+        return self.process(self.venv.reset())
+
+    def step_wait(self):
+        obs, rews, news, infos = self.venv.step_wait()
+        return self.process(obs), rews, news, infos
 
 
 def stack_obs(obs_list, observation_space) -> "OrderedDict[str, np.ndarray]":

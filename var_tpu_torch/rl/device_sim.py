@@ -31,8 +31,9 @@ the policy's own: the card-against-CPU check (tools/rl_check.py) drives
 the CPU engine with the card's actions, so that a pixel flip from a
 last-bit difference in an action cannot compound over the steps.
 
-Not in this slice: the env-axis mesh sharding (ROADMAP item 9) and
-cost_report, which waits for the port's bench and flops tools (item 10).
+Not ported yet: the env-axis mesh sharding (ROADMAP "Parallelism") and
+cost_report, which waits for the port's bench and flops tools (ROADMAP
+"A port bench.py").
 """
 from __future__ import annotations
 
@@ -118,7 +119,7 @@ class DeviceSimEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "the env-axis mesh of the device sim is not ported yet "
-                "(ROADMAP 'Modules left to port', item 9: parallelism)")
+                "(ROADMAP 'Modules left to port': parallelism)")
         self.var_model = var_model
         self.policy = policy
         self.config = config
@@ -359,7 +360,7 @@ class GridDeviceSimEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "the env-axis mesh of the device sim is not ported yet "
-                "(ROADMAP 'Modules left to port', item 9: parallelism)")
+                "(ROADMAP 'Modules left to port': parallelism)")
         from var_tpu_torch.data.audio_store import Task
 
         self.var_model = var_model

@@ -6,33 +6,55 @@ success rate with its binomial CI95.
         [--device-sim] [--num-envs 64] [--rl-steps 12000000] [--rl-lr 3e-5] \\
         [--collect-per-class 1600] [--var-epochs 60] \\
         [--device-eval-per-class 256] [--stages collect,var,rl,eval] \\
+        [--leg-steps S] [--select-best-per-class 256] [--select-best-every 1] \\
         [--set KNOB=VALUE ...]
 
 The eval stage scores the final checkpoint on the host sims (the fused
 testRL); --device-eval-per-class adds the device-sim evaluator
 (RLDeviceSimEval) at that many episodes per class. Each run updates one
 profile entry of the JSON at --out, under build/ by default. The device
-is CUDA unless --device says otherwise. The grid recipe:
+is CUDA unless --device says otherwise; there cuDNN picks the fastest
+float32 algorithm for each convolution shape by timing
+(torch.backends.cudnn.benchmark). The grid recipe:
 
     python -m var_tpu_torch.tools.e2e_run WORK --env ai2thor --device-sim \
         --num-envs 64 --rl-steps 10000000 --rl-lr 6e-5 \
         --device-eval-per-class 256 \
         --set 'pretextCollectNum=[800,800,1600,1600,3200]'
 
-The checkpoint sweep (scripts/success_curve.py, --select-best-per-class)
-waits for ROADMAP item 10.
+Legs. --leg-steps S splits the PPO stage over calls, for a run longer
+than one machine lease. Each leg resumes from the newest checkpoint under
+WORK/rl_model (RLModelFineTune=True: parameters, Adam's count and moments,
+the update counter), trains at most S more env steps and writes
+WORK/rl_model/DONE_RL once the recipe's RLTotalSteps are reached. Every
+leg keeps RLTotalSteps at the whole recipe, so the LR schedule (its
+horizon and the linear decay's start, counted in optimizer steps) is the
+unsplit run's, and checkpoint labels continue from the restored counter.
+As in the JAX package's resume, a leg re-seeds the action-noise and
+permutation generator from RLEnvSeed and starts a fresh return-RMS: the
+checkpoint holds neither. With S a multiple of ppoNumSteps * RLNumEnvs *
+RLModelSaveInterval the legs save the unsplit run's labels, plus each
+leg's last. A later leg passes --stages rl,eval (or rl) to skip collection
+and the VAR. The eval stages score the newest checkpoint.
+
+--select-best-per-class N sweeps the checkpoints with the device
+evaluator (tools/success_curve.py) at N episodes per class, links
+rl_model/best to the best one and records checkpoint_selection in the
+JSON, as scripts/e2e_run.py does.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 DEFAULT_OUT = os.path.join(ROOT, "build", "e2e", "E2E_port.json")
+DONE_MARKER = "DONE_RL"
 
 
 def build_config(env, work, rl_steps, rl_lr=None, num_envs=None,
@@ -137,14 +159,88 @@ def parse_args(argv=None):
                     dest="set_items",
                     help="config overrides, applied after the runner's own")
     ap.add_argument("--stages", default="collect,var,rl,eval")
+    ap.add_argument("--leg-steps", type=int, default=0,
+                    help="train at most this many env steps in this call, "
+                         "resuming from the newest checkpoint (0 = the "
+                         "whole run)")
+    ap.add_argument("--select-best-per-class", type=int, default=0,
+                    help="sweep the checkpoints with the device evaluator "
+                         "at this many episodes per class and link "
+                         "rl_model/best to the best (0 = off)")
+    ap.add_argument("--select-best-every", type=int, default=1,
+                    help="curve stride: evaluate every k-th checkpoint")
     ap.add_argument("--out", default=DEFAULT_OUT)
     return ap.parse_args(argv)
 
 
+def run_leg(trainer, leg_steps: int) -> dict:
+    """One leg of the PPO stage (see the module docstring): resume from the
+    newest checkpoint, train at most `leg_steps` env steps of what the
+    recipe has left, write rl_model/DONE_RL when none is left."""
+    from var_tpu_torch.train.checkpoint import latest_checkpoint
+
+    cfg = trainer.config
+    rl_dir = cfg.RLModelSaveDir
+    per_update = int(cfg.ppoNumSteps) * int(cfg.RLNumEnvs)
+    total_updates = int(cfg.RLTotalSteps) // per_update
+    latest = latest_checkpoint(rl_dir)
+    done = 0 if latest is None else int(os.path.basename(latest)) + 1
+    if latest is not None:
+        cfg.override(RLModelFineTune=True, RLModelLoadDir=latest)
+    steps = min(int(leg_steps) // per_update, total_updates - done)
+    if steps > 0:
+        print(f"leg: updates {done}..{done + steps - 1} of {total_updates}"
+              + (f", resuming from {latest}" if latest else ""))
+        trainer.trainRL(total_steps=steps * per_update)
+        done += steps
+    finished = done >= total_updates
+    if finished:
+        with open(os.path.join(rl_dir, DONE_MARKER), "w") as f:
+            f.write(f"{done} updates, {done * per_update} env steps\n")
+    return {"resumed_from": latest, "updates_done": done,
+            "updates_total": total_updates, "done": finished}
+
+
+def select_checkpoint(env, work, episodes_per_class, envs, every, extra_set,
+                      device) -> dict:
+    """Sweep the run's checkpoints, link rl_model/best to the best one and
+    write rl_model/best_checkpoint.json (scripts/e2e_run.py:280-330)."""
+    from var_tpu_torch.tools.success_curve import run_curve, select_best
+
+    rl_dir = os.path.join(work, "rl_model")
+    rows = run_curve(env, work, episodes_per_class, envs, every,
+                     extra_set=extra_set, device=device)
+    best = select_best(rows)
+    best_link = os.path.join(rl_dir, "best")
+    # a stale 'best' may be a link, a file or a directory
+    if os.path.lexists(best_link):
+        if os.path.isdir(best_link) and not os.path.islink(best_link):
+            shutil.rmtree(best_link)
+        else:
+            os.unlink(best_link)
+    os.symlink(best["checkpoint"], best_link)
+    sel = {
+        "best_checkpoint": os.path.join(rl_dir, best["checkpoint"]),
+        "shipped_as": best_link,
+        "best_success_rate": best["success_rate"],
+        "best_ci95": best["ci95"],
+        "best_env_steps": best["env_steps"],
+        "final_success_rate": rows[-1]["success_rate"],
+        # eval_batch runs whole batches: episodes round up to a batch
+        "episodes_per_point": (-(-episodes_per_class // envs) * envs
+                               * len([k for k in rows[0]
+                                      if k.startswith("class_")])),
+        "curve_csv": os.path.join(rl_dir, "success_curve.csv"),
+    }
+    with open(os.path.join(rl_dir, "best_checkpoint.json"), "w") as f:
+        json.dump(sel, f, indent=2)
+    print(f"selected {sel['best_checkpoint']}: {best['success_rate']:.4f} "
+          f"±{best['ci95']:.4f} (final: {rows[-1]['success_rate']:.4f})")
+    return sel
+
+
 def main(argv=None):
     from var_tpu_torch.device import resolve_device
-    from var_tpu_torch.train.pretext import PretextTrainer
-    from var_tpu_torch.train.rl import RLTrainer
 
     args = parse_args(argv)
     out = os.path.abspath(args.out)
@@ -153,6 +249,23 @@ def main(argv=None):
         raise SystemExit(f"--out {args.out}: the repo's E2E_*.json files "
                          "hold the JAX package's results")
     device = str(resolve_device(args.device))
+    import torch
+
+    # a run's convolution shapes are fixed, so let cuDNN time its float32
+    # algorithms for each and keep the fastest (TF32 stays off)
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = torch.device(device).type == "cuda"
+    try:
+        return _run(args, out, device)
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+
+
+def _run(args, out, device):
+    from var_tpu_torch.train.checkpoint import latest_checkpoint
+    from var_tpu_torch.train.pretext import PretextTrainer
+    from var_tpu_torch.train.rl import RLTrainer
+
     stages = set(args.stages.split(","))
 
     def config(**extra):
@@ -182,14 +295,22 @@ def main(argv=None):
             pretext.trainRepresentation()
             timings["var_train_s"] = time.time() - t0
 
+    rl_dir = os.path.join(args.work, "rl_model")
     updates = int(cfg.RLTotalSteps) // (cfg.ppoNumSteps * cfg.RLNumEnvs)
-    final_ckpt = os.path.join(args.work, "rl_model", "%.5i" % (updates - 1))
     if "rl" in stages:
         t0 = time.time()
         rl = RLTrainer(cfg, env=args.env, device=device)
         rl.load_pretext()
-        rl.trainRL()
+        if args.leg_steps:
+            leg = run_leg(rl, args.leg_steps)
+            result["leg"] = leg
+        else:
+            rl.trainRL()
         timings["rl_train_s"] = time.time() - t0
+    # the policy the eval stages score: the newest checkpoint (the final
+    # one once the run is done)
+    final_ckpt = (latest_checkpoint(rl_dir) if args.leg_steps else
+                  os.path.join(rl_dir, "%.5i" % (updates - 1)))
 
     if "eval" in stages:
         t0 = time.time()
@@ -225,6 +346,14 @@ def main(argv=None):
         result["device_eval"] = {
             "success_rate": rate, "eval_episodes": n_eps,
             "ci95": binom_ci95(rate, n_eps), "eval_s": time.time() - t0}
+
+    if args.select_best_per_class:
+        t0 = time.time()
+        result["checkpoint_selection"] = select_checkpoint(
+            args.env, args.work, args.select_best_per_class,
+            args.device_eval_envs, args.select_best_every, args.set_items,
+            device)
+        result["checkpoint_selection"]["select_s"] = time.time() - t0
 
     result["timings_s"] = timings
     result["hardware"] = _hardware(device)

@@ -1,6 +1,6 @@
 """The RL paths on the card against the same on the CPU (chip_smoke.py
-phases 9, 13 and, for the ai2thor grid, 18; tests/test_torch_kernels.py at
-reduced width). Each check takes the profile from its config: the arm
+phases 9, 13, 23 and, for the ai2thor grid, 18; tests/test_torch_kernels.py
+at reduced width). Each check takes the profile from its config: the arm
 (Gaussian actions, the gripper pose) or the ai2thor grid (categorical
 actions, the occupancy crop, the CRNN VAR).
 
@@ -25,6 +25,8 @@ success bits and counts; everything else agrees within the tolerances
 below. Both sides then run one PPO.update of the card's batch with the
 same permutations. render_card_against_host holds the card's render
 against the host sim's get_image at seeded states, every pixel.
+
+wrapped_card_against_cpu (the reward-wrapper path): see its docstring.
 
 Tolerances: rtol = atol = 1e-4 for everything but the parameters, and
 for the ai2thor CRNN's goal embeddings rtol 1e-3 / atol 2e-4 (BASELINE.md)
@@ -345,3 +347,73 @@ def _grid_render_card_against_host(cfg, n: int, seed: int, card: str
         bad["occupancy_differing"] += bool((occ != occs[i]).any())
         bad["visibility_differing"] += bool((np.asarray(v) != vis[i]).any())
     return {"states": n, **bad, "ok": not any(bad.values())}
+
+
+def wrapped_card_against_cpu(config, seed: int = 0, card: str = "cuda"
+                             ) -> dict:
+    """The reward-wrapper path (fusedRollout=False): one
+    `config.ppoNumSteps`-step rollout on the card through the wrapped host
+    envs (train/rl.py rollout_wrapped) with action noise drawn on the CPU;
+    then, step by step, the CPU's policy acts on the card's stored
+    observation, recurrent state and masks with the same noise, and the
+    CPU's VAR encodes the stored images. Actions, log-probs, values, the
+    next recurrent state and the image features are compared; then both
+    sides run one PPO.update of the rollout with the same permutations
+    (see _update_report). Returns the report with `ok`."""
+    from var_tpu_torch.device import resolve_device
+    from var_tpu_torch.envs.spaces import Discrete
+    from var_tpu_torch.models.distributions import gumbel_noise
+    from var_tpu_torch.models.policy import act, get_value
+    from var_tpu_torch.rl.ppo import PPO, PPOConfig
+    from var_tpu_torch.train.rl import RLTrainer
+
+    cfg = config
+    resolve_device(card)
+    T, N = cfg.ppoNumSteps, cfg.RLNumEnvs
+    trainer = RLTrainer(cfg, device=card)
+    var = _var(cfg, seed)
+    trainer.pretext_model = copy.deepcopy(var).to(card)
+    envs, rollouts = trainer.setup_wrapped()
+    space = envs.action_space
+    gen = torch.Generator().manual_seed(seed + 2)
+    noise = torch.stack([
+        gumbel_noise((N, space.n), gen) if isinstance(space, Discrete)
+        else torch.randn((N,) + space.shape, generator=gen)
+        for _ in range(T)])
+    cpu_policy = copy.deepcopy(trainer.policy).to("cpu")
+    trainer.rollout_wrapped(envs, rollouts, noise=noise.to(card))
+    envs.close()
+
+    errs = {"actions": 0.0, "log_probs": 0.0, "values": 0.0, "hx": 0.0,
+            "image_feat": 0.0}
+    with torch.no_grad():
+        for t in range(T):
+            obs = {k: torch.from_numpy(v[t]) for k, v in
+                   rollouts.obs.items()}
+            out = act(cpu_policy, obs,
+                      torch.from_numpy(rollouts.recurrent_hidden_states[t]),
+                      torch.from_numpy(rollouts.masks[t]), noise=noise[t])
+            for key, got, want in (
+                    ("actions", out.action, rollouts.actions[t]),
+                    ("log_probs", out.action_log_prob,
+                     rollouts.action_log_probs[t]),
+                    ("values", out.value, rollouts.value_preds[t]),
+                    ("hx", out.rnn_hx,
+                     rollouts.recurrent_hidden_states[t + 1]),
+                    ("image_feat", var.encode_image(obs["image"])[1],
+                     obs["image_feat"])):
+                errs[key] = max(errs[key], _err(got, want))
+        next_value = get_value(
+            trainer.policy,
+            {k: trainer._to_device(v[-1]) for k, v in rollouts.obs.items()},
+            trainer._to_device(rollouts.recurrent_hidden_states[-1]),
+            trainer._to_device(rollouts.masks[-1]))
+    rollouts.compute_returns(next_value.cpu().numpy(), cfg.ppoUseGAE,
+                             cfg.RLGamma, cfg.ppoGAELambda,
+                             cfg.RLUseProperTimeLimits)
+    card_batch = rollouts.device_batch()
+    rollouts.device = torch.device("cpu")
+    sides = [(PPO(trainer.policy, PPOConfig.from_config(cfg)), card_batch),
+             (PPO(cpu_policy, PPOConfig.from_config(cfg)),
+              rollouts.device_batch())]
+    return _update_report(cfg, sides, card, seed, errs)

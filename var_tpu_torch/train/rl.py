@@ -1,5 +1,5 @@
 """RL trainer: PPO outer loop, policy eval, checkpointing (port of
-var_tpu/train/rl.py: the fusedRollout and the device-sim paths).
+var_tpu/train/rl.py: the fused, device-sim and reward-wrapper paths).
 
 - fusedRollout: host sims in a vec env -> the fused device rollout
   (frozen-VAR encode, dot reward, return normalisation, recurrent policy
@@ -9,12 +9,16 @@ var_tpu/train/rl.py: the fusedRollout and the device-sim paths).
 - RLDeviceSimRollout / RLDeviceSimEval: the sim itself on the device (the
   arm's DeviceSimEngine, the ai2thor grid's GridDeviceSimEngine,
   rl/device_sim.py), one small read per PPO update or per evaluation;
-- CSV progress, checkpoints and the success-rate CSV for both.
+- fusedRollout=False: the reference's protocol, host sims under the
+  frozen-VAR reward wrapper (rl/reward.py::VecVARReward: one VAR call per
+  env step on the device, return normalisation on the host), the policy
+  acting from host observations, a host RolloutStorage (rl/storage.py)
+  uploaded once per PPO update; its eval steps the same wrapped envs;
+- CSV progress, checkpoints and the success-rate CSV for all of them.
 
 The other modes of the JAX package wait for later slices and raise
-NotImplementedError naming their ROADMAP item ("Modules left to port"):
-the reward-wrapper path (fusedRollout=False), RLPipelinedRollout, manual
-control and meshShape.
+NotImplementedError naming their ROADMAP entry ("Modules left to port") by
+its title: RLPipelinedRollout, manual control and meshShape (parallelism).
 """
 from __future__ import annotations
 
@@ -31,9 +35,10 @@ from var_tpu_torch.config import gym_register
 from var_tpu_torch.device import resolve_device
 from var_tpu_torch.envs import spaces as S
 from var_tpu_torch.envs.vec.factory import make_vec_envs
-from var_tpu_torch.models.policy import build_policy
+from var_tpu_torch.models.policy import act, build_policy, get_value
 from var_tpu_torch.rl.ppo import PPO, AdamState, PPOConfig, PPOState
 from var_tpu_torch.rl.rollout_device import DeviceRolloutEngine
+from var_tpu_torch.rl.storage import RolloutStorage
 from var_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from var_tpu_torch.train.pretext import PretextTrainer
 from var_tpu_torch.utils.logging import CSVLogger
@@ -42,7 +47,7 @@ from var_tpu_torch.utils.profiling import PhaseTimer, RSSWatchdog
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP 'Modules left to port', {item})")
+        f"{what} is not ported yet (ROADMAP 'Modules left to port': {item})")
 
 
 class RLTrainer:
@@ -217,14 +222,13 @@ class RLTrainer:
                 log_interval: Optional[int] = None):
         cfg = self.config
         if getattr(cfg, "meshShape", None):
-            raise _not_ported("meshShape", "item 9: parallelism")
+            raise _not_ported("meshShape", "parallelism")
         if getattr(cfg, "RLDeviceSimRollout", False):
             return self._train_device_sim(total_steps, log_interval)
         if not getattr(cfg, "fusedRollout", False):
-            raise _not_ported("fusedRollout=False (_train_wrapped)",
-                              "item 2: the reward-wrapper path")
+            return self._train_wrapped(total_steps, log_interval)
         if getattr(cfg, "RLPipelinedRollout", False):
-            raise _not_ported("RLPipelinedRollout", "item 3")
+            raise _not_ported("RLPipelinedRollout", "RLPipelinedRollout")
         return self._train_fused(total_steps, log_interval)
 
     def setup_device_sim(self):
@@ -394,6 +398,166 @@ class RLTrainer:
         envs.close()
         return self.state
 
+    # -- the reward-wrapper path (fusedRollout=False) ------------------------
+
+    def _wrapped_envs(self, num_envs: int, gamma):
+        cfg = self.config
+        return make_vec_envs(
+            env_name=cfg.RLEnvName, seed=cfg.RLEnvSeed,
+            num_processes=num_envs, gamma=gamma, randomCollect=False,
+            config=cfg, pretext_model=self.pretext_model, device=self.device)
+
+    def _to_device(self, x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def setup_wrapped(self):
+        """Everything _train_wrapped does before its loop: the wrapped envs,
+        the policy (or the fine-tune checkpoint), the PPO state and the
+        rollout storage holding the first observation. Returns (envs,
+        rollouts)."""
+        cfg = self.config
+        if self.pretext_model is None:
+            raise RuntimeError("load_pretext() first: the reward needs the "
+                               "frozen VAR")
+        T, N = cfg.ppoNumSteps, cfg.RLNumEnvs
+        envs = self._wrapped_envs(N, cfg.RLGamma)
+        self._build_policy(envs.action_space)
+        obs = envs.reset()
+        resume = (None, None, None)
+        if cfg.RLModelFineTune and os.path.exists(cfg.RLModelLoadDir):
+            print("Load the weights from", cfg.RLModelLoadDir)
+            resume = self.load_policy_state(cfg.RLModelLoadDir)
+        self.ppo = PPO(self.policy, PPOConfig.from_config(cfg))
+        self._resume_state(resume)
+        # the storage holds the wrapper's observation dict (RLObsIgnore
+        # keys dropped)
+        rollouts = RolloutStorage(
+            T, N, _processed_space(obs), envs.action_space,
+            self.policy.recurrent_hidden_state_size, cfg, device=self.device)
+        rollouts.set_first_obs(_to_f32(obs))
+        self.episode_rewards = deque(maxlen=10)
+        self.env_rewards = np.zeros(N)
+        return envs, rollouts
+
+    def rollout_wrapped(self, envs, rollouts, noise=None):
+        """T env steps: the policy acts on the storage's observation (one
+        upload, one read a step), then the wrapped envs step and score
+        them. `noise` (T, ...), if given, replaces the generator's draws
+        (see distributions.sample)."""
+        for step in range(rollouts.num_steps):
+            with self.timer.phase("policy_act"):
+                out = act(self.policy,
+                          {k: self._to_device(v[step])
+                           for k, v in rollouts.obs.items()},
+                          self._to_device(
+                              rollouts.recurrent_hidden_states[step]),
+                          self._to_device(rollouts.masks[step]),
+                          self.generator,
+                          None if noise is None else noise[step])
+                action, logp, value, hx = (
+                    t.cpu().numpy() for t in (out.action, out.action_log_prob,
+                                              out.value, out.rnn_hx))
+            with self.timer.phase("env_step"):
+                obs, reward, done, infos = envs.step(action)
+            self.env_rewards = self.env_rewards + envs.origStepReward
+            for index in np.where(done)[0]:
+                self.episode_rewards.append(self.env_rewards[index])
+                self.env_rewards[index] = 0.0
+            bad_masks = np.asarray(
+                [[0.0] if "bad_transition" in info else [1.0]
+                 for info in infos], np.float32)
+            rollouts.insert(_to_f32(obs), hx, action, logp, value, reward,
+                            (~done).astype(np.float32)[:, None], bad_masks)
+
+    def update_wrapped(self, rollouts, perms=None):
+        """GAE from the value at the last observation, then one PPO update
+        of the uploaded rollout; returns the metrics as floats. `perms`, if
+        given, replaces PPO.draw_perms."""
+        cfg = self.config
+        next_value = get_value(
+            self.policy,
+            {k: self._to_device(v[-1]) for k, v in rollouts.obs.items()},
+            self._to_device(rollouts.recurrent_hidden_states[-1]),
+            self._to_device(rollouts.masks[-1]))
+        rollouts.compute_returns(next_value.cpu().numpy(), cfg.ppoUseGAE,
+                                 cfg.RLGamma, cfg.ppoGAELambda,
+                                 cfg.RLUseProperTimeLimits)
+        with self.timer.phase("ppo_update"):
+            batch = rollouts.device_batch()
+            if perms is None:
+                perms = self.ppo.draw_perms(batch, self.generator)
+            self.state, metrics = self.ppo.update(self.state, batch, perms)
+            values = torch.stack(list(metrics.values())).tolist()
+        rollouts.after_update()
+        return dict(zip(metrics, values))
+
+    def _train_wrapped(self, total_steps: Optional[int] = None,
+                       log_interval: Optional[int] = None):
+        """The reference's training protocol (var_tpu/train/rl.py
+        _train_wrapped): per env step a policy act on the device from the
+        host observation, the host sims, the VAR reward wrapper; per update
+        the storage's upload, GAE and the PPO update."""
+        cfg = self.config
+        total_steps = int(cfg.RLTotalSteps if total_steps is None
+                          else total_steps)
+        log_interval = (cfg.RLLogInterval if log_interval is None
+                        else log_interval)
+        os.makedirs(cfg.RLModelSaveDir, exist_ok=True)
+        cfg.save_json(os.path.join(cfg.RLModelSaveDir, "config.json"))
+        envs, rollouts = self.setup_wrapped()
+        T, N = cfg.ppoNumSteps, cfg.RLNumEnvs
+        j0 = self.state.step  # labels continue: see _train_device_sim
+        logger = CSVLogger(os.path.join(cfg.RLModelSaveDir, "progress.csv"))
+        start = time.time()
+        num_updates = total_steps // T // N
+        if num_updates == 0:
+            print(f"WARNING: RLTotalSteps={total_steps} < ppoNumSteps*"
+                  f"RLNumEnvs={T * N}: no PPO updates will run")
+        self.update_stats = []
+        for j in range(num_updates):
+            t0 = time.perf_counter()
+            self.rollout_wrapped(envs, rollouts)
+            m = self.update_wrapped(rollouts)
+            self.update_stats.append((T * N, time.perf_counter() - t0))
+
+            if (j % cfg.RLModelSaveInterval == 0 or j == num_updates - 1) \
+                    and cfg.RLModelSaveDir:
+                self.save_policy("%.5i" % (j0 + j))
+            rewards = self.episode_rewards
+            if j % log_interval == 0 and len(rewards) > 1:
+                total_num_steps = (j + 1) * N * T
+                fps = int(total_num_steps / (time.time() - start))
+                print(
+                    f"Updates {j}, num timesteps {total_num_steps}, FPS {fps}\n"
+                    f" Last {len(rewards)} episodes: mean/median reward "
+                    f"{np.mean(rewards):.2f}/{np.median(rewards):.2f}, "
+                    f"min/max {np.min(rewards):.2f}/{np.max(rewards):.2f}, "
+                    f"entropy {m['dist_entropy']:.3f} vloss "
+                    f"{m['value_loss']:.3f} aloss {m['action_loss']:.3f}")
+                logger.log({
+                    "misc/nupdates": j,
+                    "misc/total_timesteps": total_num_steps,
+                    "fps": fps,
+                    "eprewmean": float(np.mean(rewards)),
+                    "min": float(np.min(rewards)),
+                    "max": float(np.max(rewards)),
+                    "loss/policy_entropy": m["dist_entropy"],
+                    "loss/policy_loss": m["action_loss"],
+                    "loss/value_loss": m["value_loss"],
+                    "lr": self.ppo.current_lr(self.state),
+                    "perf/var_reward_p50_ms": round(
+                        envs.timer.p50_ms("var_reward"), 3),
+                    "perf/policy_act_ms": round(
+                        self.timer.p50_ms("policy_act"), 3),
+                    "perf/env_step_ms": round(
+                        self.timer.p50_ms("env_step"), 3),
+                    "perf/ppo_update_ms": round(
+                        self.timer.p50_ms("ppo_update"), 3),
+                    "perf/host_rss_gb": round(self._watchdog.check(), 2),
+                })
+        envs.close()
+        return self.state
+
     # -- evaluation (reference: VAR/RL_VAR.py:12-76 testRL) --------------------
 
     def testRL(self, num_episodes: Optional[int] = None,
@@ -415,8 +579,7 @@ class RLTrainer:
                     "for adapter-backed environments")
             return self._test_device_sim(num_episodes, policy_path, num_envs)
         if not getattr(cfg, "fusedRollout", False):
-            raise _not_ported("the wrapped testRL (fusedRollout=False)",
-                              "item 2: the reward-wrapper path")
+            return self._test_wrapped(num_episodes, policy_path, num_envs)
         return self._test_fused(num_episodes, policy_path, num_envs)
 
     def _test_fused(self, num_episodes: Optional[int] = None,
@@ -460,6 +623,66 @@ class RLTrainer:
                 0, raw_obs, np.asarray(env_rew, np.float32),
                 done.astype(np.float32), np.ones(N, np.float32))
             eval_env_reward = eval_env_reward + raw_rew
+            for i in np.where(done)[0]:
+                if episodes >= episode_num:
+                    break
+                episodes += 1
+                gc = infos[i].get("goal_area_count", 0)
+                goal_counts.append(gc)
+                results.append(int(gc >= cfg.success_threshold))
+                ep_rewards.append(eval_env_reward[i])
+                eval_env_reward[i] = 0.0
+
+        success_rate = self._finish_eval(
+            path, results, goal_counts, ep_rewards, size_per_class, N)
+        envs.close()
+        return success_rate
+
+    def _test_wrapped(self, num_episodes: Optional[int] = None,
+                      policy_path: Optional[str] = None, num_envs: int = 1):
+        """Per-class evaluation through the wrapped envs (the JAX package's
+        testRL with fusedRollout=False): per env step one policy act from
+        the host observation, then the envs and the VAR reward wrapper.
+        The same round robin and CSV as _test_fused."""
+        cfg = self.config
+        N = int(num_envs)
+        if self.pretext_model is None:
+            raise RuntimeError("load_pretext() first: the reward needs the "
+                               "frozen VAR")
+        path = policy_path or cfg.skillInfos[0]["path"]
+        if not os.path.exists(path):
+            # never score a random policy silently (RL.py:42)
+            raise FileNotFoundError(
+                f"policy checkpoint {path!r} does not exist")
+        envs = self._wrapped_envs(N, cfg.RLGamma)
+        base = envs.unwrapped.envs[0].env
+        self._build_policy(envs.action_space)
+        self.policy.load_state_dict(self.load_policy_params(path))
+        print("Load the weights from", path)
+        size_per_class = np.asarray(base.size_per_class)
+        episode_num = int(np.sum(size_per_class)) * N
+        if num_episodes is not None:
+            episode_num = num_episodes
+
+        obs = envs.reset()
+        hx = torch.zeros((N, self.policy.recurrent_hidden_state_size),
+                         device=self.device)
+        masks = torch.zeros((N, 1), device=self.device)
+        # the eval draws' own stream, as the JAX package's PRNGKey(1)
+        generator = torch.Generator(device=self.device).manual_seed(1)
+        results, goal_counts, ep_rewards = [], [], []
+        eval_env_reward = np.zeros(N)
+        episodes = 0
+        while episodes < episode_num:
+            out = act(self.policy, {k: self._to_device(v)
+                                    for k, v in _to_f32(obs).items()},
+                      hx, masks, generator,
+                      deterministic=bool(cfg.RLDeterministic))
+            hx = out.rnn_hx
+            obs, _, done, infos = envs.step(out.action.cpu().numpy())
+            eval_env_reward = eval_env_reward + np.asarray(
+                envs.origStepReward)
+            masks = self._to_device((~done).astype(np.float32)[:, None])
             for i in np.where(done)[0]:
                 if episodes >= episode_num:
                     break
@@ -571,7 +794,8 @@ class RLTrainer:
     def run(self):
         cfg = self.config
         if cfg.RLManualControl:
-            raise _not_ported("manual control (RLManualControl)", "item 5")
+            raise _not_ported("manual control (RLManualControl)",
+                              "manual control")
         self.load_pretext()
         if cfg.RLTrain:
             return self.trainRL()
@@ -608,3 +832,15 @@ def _eval_size_per_class(cfg):
     for key in sizes:
         per = per + np.asarray(sizes[key][: cfg.taskNum], np.int64)
     return per
+
+
+def _processed_space(obs_batch):
+    """The space of a processed observation batch (the reward wrapper
+    defines the policy's observation at run time)."""
+    return S.DictSpace({
+        k: S.Box(-np.inf, np.inf, shape=v.shape[1:], dtype=np.float32)
+        for k, v in obs_batch.items()})
+
+
+def _to_f32(obs):
+    return {k: np.asarray(v, dtype=np.float32) for k, v in obs.items()}
