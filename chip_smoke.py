@@ -111,6 +111,33 @@ them, at full arm width, on phase 4's VAR:
    wrapped_card_against_cpu: a 10-step rollout, each step's act and image
    features, one PPO update).
 
+Phases 24-28 run pretext's other paths and the pipelined rollout at full
+arm width (batch 128, image 3x96x96, sound 1x100x40,
+audioBackend='pallas'):
+24. the 'mix' preset (GoogleCommand 512/160 + UrbanSound 1024/640) through
+   the multi-bank path, its store built as tests/test_hetero_bank.py builds
+   it (synthetic UrbanSound clips in the preset's layout, sizes
+   [25, 0, 0, 25]): collect 768 triplets, 3 epochs of 6 steps; 4 kernel
+   launches a step, 2 at (128, 101, 257) and 2 at (128, 101, 513); the
+   kernel held against its plain version on the path's first F = 513
+   input and timed there, cold and warm, beside its plain version and its
+   bound; one step's loss with 'pallas' against 'gemm' at rtol 1e-4;
+   triplets/s;
+25. the chunked path on phase 4's data and VAR: a one-chunk epoch against
+   the resident one at rtol 1e-5; then a pretextHBMBudgetMB that leaves
+   256 items a slab, 3 slabs of 2 steps an epoch, 3 epochs at 2 launches
+   a step; triplets/s beside phase 4's resident rate;
+26. the streaming path: `python -m var_tpu_torch.pretext` over shards
+   collected with pretextDataHasSound=True, 3 epochs of 6 feature steps
+   with one batch's upload in flight, no kernel launch; triplets/s;
+27. testRepresentation on phase 4's VAR through the pretext entry's
+   dispatch: representation.npz with a row per item, one launch a batch
+   (the positive sound's MFCC);
+28. RLPipelinedRollout: 2 PPO updates at 8 envs x 100 steps through
+   `python -m var_tpu_torch.rl` on phase 4's VAR: the warning, finite
+   losses, no kernel launch; env-steps/s beside phase 7's exact-protocol
+   rate, the p50 of fused_step and env_step.
+
 It then prints the card's name and power limit as nvidia-smi gives them,
 one JSON line with the kernels' numbers, and, last, one JSON line
 {"ok": true, "device": {...}}. Scratch output goes to build/chip_smoke/.
@@ -290,6 +317,27 @@ def kernel_times(torch, np, mld, audio):
     return rows
 
 
+def mld_bound(np, audio, params, shape, bw, flops, cold_ms):
+    """The least time of a mel-log-DCT call at `shape` (B, T, F): the
+    larger of its bytes (the power read once, the tables, the output
+    written once) over the memory rate and its float32 operations (the
+    banded mel sums and the DCT) over the peak rate. Prints it beside the
+    kernel's cold time; returns (bound ms, 'bytes' or 'operations')."""
+    Bm, T, F = shape
+    n_rows = Bm * T
+    mel = audio._frontend_constants(params, "float32")[2]
+    nnz = int(np.count_nonzero(mel))
+    n_bytes = 4 * (n_rows * F + F * 40 + 40 * 40 + n_rows * 40)
+    n_flops = 2 * n_rows * (nnz + 40 * 40)  # the banded product's needs
+    t_bytes, t_flops = n_bytes / bw * 1e3, n_flops / flops * 1e3
+    bound = max(t_bytes, t_flops)
+    print(f"mel_log_dct {tuple(shape)}: bound {bound:.5f} ms "
+          f"({n_bytes} bytes, {n_flops} flops); kernel cold "
+          f"{cold_ms:.5f} ms = {100 * bound / cold_ms:.1f}% of the bound",
+          flush=True)
+    return bound, "bytes" if t_bytes >= t_flops else "operations"
+
+
 def check_mel_log_dct(torch, np, bw, flops):
     """Phase 3 for the mel-log-DCT kernel: against its plain version at
     every case and layout, finite and non-finite rows."""
@@ -338,23 +386,11 @@ def check_mel_log_dct(torch, np, bw, flops):
             continue
         row = next(r for r in rows
                    if r["case"] == label and r["layout"] == "stft view")
-        Bm, T, F = row["shape"]
-        n_rows = Bm * T
-        mel = audio._frontend_constants(audio.PARAM_TABLE[preset],
-                                        "float32")[2]
-        nnz = int(np.count_nonzero(mel))
-        n_bytes = 4 * (n_rows * F + F * 40 + 40 * 40 + n_rows * 40)
-        n_flops = 2 * n_rows * (nnz + 40 * 40)  # the banded product's needs
-        t_bytes, t_flops = n_bytes / bw * 1e3, n_flops / flops * 1e3
-        bound = max(t_bytes, t_flops)
-        print(f"mel_log_dct {tuple(row['shape'])}: bound {bound:.5f} ms "
-              f"({n_bytes} bytes, {n_flops} flops); kernel cold "
-              f"{row['cold_ms']:.5f} ms = {100 * bound / row['cold_ms']:.1f}% "
-              f"of the bound", flush=True)
+        bound, bound_by = mld_bound(np, audio, audio.PARAM_TABLE[preset],
+                                    row["shape"], bw, flops, row["cold_ms"])
         timed[label] = dict(
             shape=row["shape"], ms=row["cold_ms"], warm_ms=row["warm_ms"],
-            plain_ms=row["plain_cold_ms"], bound_ms=bound,
-            bound_by="bytes" if t_bytes >= t_flops else "operations")
+            plain_ms=row["plain_cold_ms"], bound_ms=bound, bound_by=bound_by)
     main = timed.pop("main")
     return dict(name="mel_log_dct", route="cuda",
                 source="var_tpu_torch/csrc/mel_log_dct.cu",
@@ -423,6 +459,7 @@ def run_slice(torch, env="arms"):
         fail(f"bad epoch losses {losses}: finite and falling expected")
     # epoch 0 holds the first-call set-up (cuDNN plans, allocator growth)
     rates = [n / t for n, t in trainer.epoch_stats[1:]]
+    RATES[env + " pretext"] = statistics.median(rates)
     print(f"slice [{env}]: triplets/s over epochs 1-{len(rates)}: median "
           f"{statistics.median(rates):.1f} (min {min(rates):.1f}, max "
           f"{max(rates):.1f}); epoch seconds "
@@ -519,6 +556,7 @@ def breakdown(torch, trainer, ds, bank):
 RL_UPDATES = 3  # device-sim updates of either profile
 # mel_log_dct launches on each path, each counted from 0 just before it
 LAUNCHES = {}
+RATES = {}  # phase 4's triplets/s and phase 7's env-steps/s, for 25 and 28
 
 
 def _width(cfg):
@@ -590,6 +628,7 @@ def rl_train(torch, np, mld, env="arms"):
         fail("the policy parameters did not change")
     # update 0 holds the first-call set-up (cuDNN plans, allocator growth)
     rates = [n / t for n, t in trainer.update_stats[1:]]
+    RATES[env + " rl"] = statistics.median(rates)
     timer = trainer.timer
     print(f"rl train: env-steps/s over updates 1-{len(rates)}: median "
           f"{statistics.median(rates):.1f} (min {min(rates):.1f}, max "
@@ -1205,6 +1244,338 @@ def slice6_phases(torch, mld):
     torch.cuda.empty_cache()
 
 
+# -- phases 24-28: pretext's other paths and the pipelined rollout -------------
+
+ARM_DATA = RUN_DIR / "arms" / "data"  # phase 4's 768 triplets
+
+
+def _pretext_config(run, **knobs):
+    """The arm pretext at full width under `run`, phase 4's knobs."""
+    from var_tpu_torch.config import gym_register, main_config
+
+    cfg = main_config(env="arms")
+    cfg.override(**{**dict(
+        pretextDataDir=[str(run / "data")],
+        pretextModelSaveDir=str(run / "model"), audioBackend="pallas",
+        pretextModelFineTune=False, pretextDataset="VARDataset",
+        vecEnvBackend="dummy", pretextCollectNum=[128, 128, 128, 128, 256],
+        pretextEpoch=3, pretextModelSaveInterval=3), **knobs})
+    gym_register(cfg, env="arms")
+    return cfg
+
+
+def mix_store(cfg):
+    """The 'mix' preset's store without its corpora: the synthetic source
+    (bank 0, n_fft 512) and, in the preset's class layout (UrbanSound
+    sizes [25, 0, 0, 25]), synthetic UrbanSound clips (bank 1, n_fft 1024),
+    as tests/test_hetero_bank.py builds its store."""
+    import numpy as np
+
+    from var_tpu_torch.data.audio_store import AudioStore, synth_clip
+
+    audio = AudioStore(cfg)
+    audio.loadData()
+    rng = np.random.RandomState(7)
+    for i, n in enumerate(cfg.soundSource["size"]["UrbanSound"]):
+        if n:
+            audio.words[i]["UrbanSound"] = [synth_clip(i, rng)
+                                            for _ in range(n)]
+    return audio
+
+
+def _capture_stft(audio, into):
+    """Wraps the gemm STFT, which precedes every kernel launch of the
+    pallas backend: keeps each output's shape and the first output per
+    bin count. Returns the undo."""
+    stft = audio._stft_power_gemm
+
+    def capture(wav, params, *args):
+        power = stft(wav, params, *args)
+        into.setdefault("shapes", []).append(tuple(power.shape))
+        into.setdefault(power.shape[-1], (power.detach().clone(), params))
+        return power
+
+    audio._stft_power_gemm = capture
+    return lambda: setattr(audio, "_stft_power_gemm", stft)
+
+
+def mix_phase(torch, np, mld, kernel, bw, flops):
+    """Phase 24: the 'mix' preset through the multi-bank path."""
+    from var_tpu_torch.ops import audio
+    from var_tpu_torch.train.pretext import PretextTrainer
+
+    run = RUN_DIR / "mix"
+    cfg = _pretext_config(run, soundSourcePreset="mix")
+    store = mix_store(cfg)
+    trainer = PretextTrainer(cfg, device="cuda", audio=store)
+    seen = {}
+    undo = _capture_stft(audio, seen)
+    mld.mel_log_dct.launches = 0
+    t0 = time.perf_counter()
+    try:
+        trainer.run()
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    wall = time.perf_counter() - t0
+    launches = LAUNCHES["arms mix pretext"] = mld.mel_log_dct.launches
+    steps = trainer.step
+    by_f = {F: sum(sh[-1] == F for sh in seen["shapes"]) for F in (257, 513)}
+    losses = [float(v) for v in
+              (run / "model" / "progress.csv").read_text().split()[1:]]
+    rates = [n / t for n, t in trainer.epoch_stats[1:]]
+    print(f"mix: {steps} steps at batch {cfg.pretextTrainBatchSize}, "
+          f"STFT param sets {[tuple(p) for p in store.param_sets()]}; "
+          f"mel_log_dct launches {launches}, by bins {by_f}, shapes "
+          f"{sorted(set(seen['shapes']))}; losses {losses}; triplets/s over "
+          f"epochs 1-2 {[round(r, 1) for r in rates]}; wall {wall:.2f} s",
+          flush=True)
+    if steps != 18 or launches != 4 * steps \
+            or by_f != {257: 2 * steps, 513: 2 * steps} \
+            or set(seen["shapes"]) != {(128, 101, 257), (128, 101, 513)} \
+            or len(losses) != 3 or not all(map(math.isfinite, losses)):
+        fail("the mix preset did not run 4 launches a step on two banks")
+
+    power, params = seen[513]
+    with torch.no_grad():
+        got = mld.mel_log_dct(power, params)
+        want = mld.mel_log_dct_reference(power, params)
+        err = (got - want).abs().max().item()
+        print(f"mix: the kernel on the path's first F=513 input "
+              f"{tuple(power.shape)} (stride {power.stride()}): max abs err "
+              f"{err:.3e}", flush=True)
+        if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+            fail("the kernel disagrees with its plain version at F=513")
+        fn = functools.partial(mld.mel_log_dct, params=params)
+        ref = functools.partial(mld.mel_log_dct_reference, params=params)
+        cold, warm = cold_warm(torch, fn, power)
+        pcold, pwarm = cold_warm(torch, ref, power)
+    print(f"time mix {tuple(power.shape)} stft view: cold {fmt(cold)}; warm "
+          f"{fmt(warm)}; plain cold {fmt(pcold)}, warm {fmt(pwarm)}",
+          flush=True)
+    bound, bound_by = mld_bound(np, audio, params, list(power.shape), bw,
+                                flops, cold[0])
+    kernel["by_shape"].append(dict(
+        case="mix n_fft 1024", shape=list(power.shape), ms=cold[0],
+        warm_ms=warm[0], plain_ms=pcold[0], bound_ms=bound,
+        bound_by=bound_by, library_ms=None, launches=by_f[513],
+        max_abs_err=err))
+    kernel["max_abs_err"] = max(kernel["max_abs_err"], err)
+
+    # one step from one state and batch, 'pallas' against 'gemm'
+    from var_tpu_torch.data.triplets import load_env_data
+
+    ds = load_env_data(cfg, store)
+    bank = trainer._upload_dataset(ds)
+    idx = ds.epoch_order(0)[:cfg.pretextTrainBatchSize]
+    pos, neg = ds.epoch_clip_ids_multi(bank["entries"], 2, 0)
+    batch = [torch.from_numpy(idx.astype("int64")).cuda()] + [
+        torch.from_numpy(a[idx].astype("int64") if a.dtype != bool
+                         else a[idx]).cuda() for a in (*pos, *neg)]
+    trainer.init_model(seed=cfg.pretextEnvSeed)
+    init_state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    loss = {}
+    for backend in ("pallas", "gemm"):
+        cfg.override(audioBackend=backend)
+        trainer.model.load_state_dict(init_state)
+        trainer.setup_optimizer(steps_per_epoch=1)
+        loss[backend] = trainer._train_step_multi(bank, *batch).item()
+    print(f"mix: one step's loss pallas {loss['pallas']!r} gemm "
+          f"{loss['gemm']!r}", flush=True)
+    if not math.isclose(loss["pallas"], loss["gemm"], rel_tol=1e-4):
+        fail("the mix step's pallas and gemm losses disagree")
+
+
+def chunked_phase(torch, mld):
+    """Phase 25: the chunked path on phase 4's data."""
+    from var_tpu_torch.data.triplets import load_env_data
+    from var_tpu_torch.train.pretext import PretextTrainer
+
+    run = RUN_DIR / "chunked"
+    cfg = _pretext_config(run, pretextDataDir=[str(ARM_DATA)])
+
+    def trainer_from_var():
+        t = PretextTrainer(cfg, device="cuda")
+        t.loadPretextModel(str(ARM_VAR))
+        return t
+
+    # one chunk of all 768 items against the resident epoch, same weights
+    resident = trainer_from_var()
+    ds = load_env_data(cfg, resident._ensure_audio())
+    want = resident.trainRepresentation(epoch=1, dataset=ds, log_csv=False)
+    one = trainer_from_var()
+    upload = one._upload_dataset
+
+    def one_chunk(d):
+        b = upload(d)
+        return {"chunked": True, "wav": b["wav"], "len": b["len"],
+                "ranges": b["ranges"], "chunk_bytes": d.images.nbytes}
+
+    one._upload_dataset = one_chunk
+    got = one.trainRepresentation(
+        epoch=1, dataset=load_env_data(cfg, one._ensure_audio()),
+        log_csv=False)
+    print(f"chunked: one chunk {got} against resident {want}", flush=True)
+    if not all(math.isclose(g, w, rel_tol=1e-5) for g, w in zip(got, want)):
+        fail("a one-chunk epoch differs from the resident epoch")
+
+    # a budget that leaves a third of the items a slab (256 at full
+    # width: 2 steps), so 3 slabs an epoch
+    B = cfg.pretextTrainBatchSize
+    bank_bytes = resident.audio.build_clip_bank()[0].nbytes
+    item = int(ds.images[0].nbytes)
+    cfg.pretextHBMBudgetMB = math.ceil(
+        (bank_bytes + 2 * (len(ds) // 3 // B * B) * item) / 2 ** 20)
+    trainer = trainer_from_var()
+    mld.mel_log_dct.launches = 0
+    t0 = time.perf_counter()
+    losses = trainer.trainRepresentation(epoch=3, log_csv=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = LAUNCHES["arms chunked"] = mld.mel_log_dct.launches
+    bank = trainer._upload_dataset(ds)
+    if not bank.get("chunked"):
+        fail(f"a budget of {cfg.pretextHBMBudgetMB} MiB kept the images "
+             "resident")
+    slab = bank["chunk_bytes"] // item // B * B
+    rates = [n / t for n, t in trainer.epoch_stats[1:]]
+    print(f"chunked: budget {cfg.pretextHBMBudgetMB} MiB, {slab} items a "
+          f"slab, {trainer.step} steps, mel_log_dct launches {launches}; "
+          f"losses {losses}; triplets/s over epochs 1-2 "
+          f"{[round(r, 1) for r in rates]} against phase 4's resident "
+          f"median {RATES['arms pretext']:.1f}; wall {wall:.2f} s",
+          flush=True)
+    if -(-len(ds) // slab) < 3 or launches != 2 * trainer.step \
+            or not all(map(math.isfinite, losses)):
+        fail("the chunked path did not run 3 chunks at 2 launches a step")
+
+
+def streaming_phase(torch, mld):
+    """Phase 26: the streaming path over shards with features."""
+    from var_tpu_torch.pretext import main as pretext_main
+
+    run = RUN_DIR / "streaming"
+    calls = []
+    from var_tpu_torch.train import pretext as tpretext
+
+    feat = tpretext.PretextTrainer._train_step_feat
+
+    def spy(self, *a):
+        calls.append(1)
+        return feat(self, *a)
+
+    tpretext.PretextTrainer._train_step_feat = spy
+    mld.mel_log_dct.launches = 0
+    t0 = time.perf_counter()
+    try:
+        trainer = pretext_main([
+            "--env", "arms", "--set", f'pretextDataDir=["{run / "data"}"]',
+            f'pretextModelSaveDir="{run / "model"}"', 'audioBackend="pallas"',
+            "pretextModelFineTune=False", 'pretextDataset="VARDataset"',
+            'vecEnvBackend="dummy"', "pretextDataHasSound=True",
+            "pretextCollectNum=[128,128,128,128,256]", "pretextEpoch=3",
+            "pretextModelSaveInterval=3"])
+        torch.cuda.synchronize()
+    finally:
+        tpretext.PretextTrainer._train_step_feat = feat
+    wall = time.perf_counter() - t0
+    launches = LAUNCHES["arms streaming"] = mld.mel_log_dct.launches
+    rates = [n / t for n, t in trainer.epoch_stats[1:]]
+    losses = [float(v) for v in
+              (run / "model" / "progress.csv").read_text().split()[1:]]
+    print(f"streaming: {len(calls)} feature steps, mel_log_dct launches "
+          f"{launches}; losses {losses}; triplets/s over epochs 1-2 "
+          f"{[round(r, 1) for r in rates]}; wall {wall:.2f} s (collection "
+          f"with host MFCC included)", flush=True)
+    if len(calls) != 18 or launches != 0 or trainer.step != 18 \
+            or not all(map(math.isfinite, losses)):
+        fail("the streaming path did not run its feature steps")
+
+
+def representation_phase(torch, mld):
+    """Phase 27: testRepresentation on phase 4's VAR."""
+    import numpy as np
+
+    from var_tpu_torch.data.triplets import load_shard
+    from var_tpu_torch.train.pretext import PretextTrainer
+
+    run = RUN_DIR / "representation"
+    cfg = _pretext_config(run, pretextDataDir=[str(ARM_DATA)],
+                          pretextModelLoadDir=str(ARM_VAR),
+                          pretextCollection=False, pretextTrain=False)
+    mld.mel_log_dct.launches = 0
+    t0 = time.perf_counter()
+    PretextTrainer(cfg, device="cuda").run()
+    wall = time.perf_counter() - t0
+    launches = LAUNCHES["arms test representation"] = \
+        mld.mel_log_dct.launches
+    pts = np.load(run / "model" / "representation.npz")
+    n_items = sum(len(load_shard(str(p)))
+                  for p in (ARM_DATA / "train").glob("*.pickle"))
+    rows = min(n_items, cfg.plotNumBatch * cfg.pretextTestBatchSize)
+    batches = -(-rows // cfg.pretextTestBatchSize)
+    print(f"representation: img {pts['img'].shape}, sound "
+          f"{pts['sound'].shape}, labels {np.bincount(pts['img'][:, -1].astype(int)).tolist()}; "
+          f"mel_log_dct launches {launches} over {batches} batches; wall "
+          f"{wall:.2f} s", flush=True)
+    if pts["img"].shape != (rows, 4) or pts["sound"].shape != (rows, 4) \
+            or launches != batches or not np.isfinite(pts["img"]).all():
+        fail("bad representation export")
+
+
+def pipelined_phase(torch, mld):
+    """Phase 28: RLPipelinedRollout, 2 updates at 8 envs x 100 steps."""
+    import warnings
+
+    from var_tpu_torch.rl import main as rl_main
+
+    rl_dir, steps = RUN_DIR / "pipelined", PROFILES["arms"]["steps"]
+    mld.mel_log_dct.launches = 0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        trainer = rl_main([
+            "--env", "arms", "--set", f'pretextModelLoadDir="{ARM_VAR}"',
+            f'RLModelSaveDir="{rl_dir}"', "RLTrain=True",
+            "RLModelFineTune=False", 'vecEnvBackend="dummy"',
+            "RLPipelinedRollout=True", f"RLTotalSteps={2 * 8 * steps}",
+            "RLModelSaveInterval=1", "RLLogInterval=1"])
+    wall = time.perf_counter() - t0
+    launches = LAUNCHES["arms pipelined"] = mld.mel_log_dct.launches
+    cfg, timer = trainer.config, trainer.timer
+    with open(rl_dir / "progress.csv") as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r[k]) for r in rows
+              for k in ("loss/value_loss", "loss/policy_loss",
+                        "loss/policy_entropy")]
+    rates = [n / t for n, t in trainer.update_stats]
+    print(f"pipelined: {len(trainer.update_stats)} PPO updates at "
+          f"{_width(cfg)}; env-steps/s {[round(r, 1) for r in rates]} "
+          f"against phase 7's exact protocol median "
+          f"{RATES['arms rl']:.1f}; p50 ms: fused_step "
+          f"{timer.p50_ms('fused_step'):.4f}, env_step "
+          f"{timer.p50_ms('env_step'):.4f}, ppo_update "
+          f"{timer.p50_ms('ppo_update'):.4f}; losses {losses}; "
+          f"mel_log_dct launches {launches}; wall {wall:.2f} s", flush=True)
+    if _width(cfg) != (8, steps, 512, 128, 128, 4, 2, (3, 96, 96), 3) \
+            or len(trainer.update_stats) != 2 or len(rows) != 2 \
+            or not all(map(math.isfinite, losses)) or launches != 0 \
+            or not any("one-step action delay" in str(w.message)
+                       for w in caught):
+        fail("the pipelined RL phase did not run as expected")
+
+
+def slice7_phases(torch, np, mld, kernel, bw, flops):
+    """Phases 24-28."""
+    mix_phase(torch, np, mld, kernel, bw, flops)
+    chunked_phase(torch, mld)
+    streaming_phase(torch, mld)
+    representation_phase(torch, mld)
+    pipelined_phase(torch, mld)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -1237,6 +1608,9 @@ def main():
     t0 = time.perf_counter()
     slice6_phases(torch, mld)
     print(f"phases 20-23 in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    slice7_phases(torch, np, mld, kernel, bw, flops)
+    print(f"phases 24-28 in {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernel["launches_by_path"] = dict(LAUNCHES)
     print(line)

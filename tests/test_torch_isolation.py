@@ -58,6 +58,16 @@ def test_ai2thor_modules_are_covered():
         assert f"var_tpu_torch.{name}" in modules
 
 
+def test_pretext_paths_modules_are_covered():
+    """The modules of pretext's chunked, streaming, multi-bank and manual
+    paths and of the pipelined rollout are among those checked here."""
+    modules = set(_modules())
+    for name in ("utils.teleop", "data.triplets", "data.audio_store",
+                 "train.pretext", "envs.arm_sim", "envs.grid_sim",
+                 "rl.rollout_device", "train.rl", "cli"):
+        assert f"var_tpu_torch.{name}" in modules
+
+
 def test_every_module_imports_with_jax_and_var_tpu_blocked():
     blocked = FORBIDDEN + ("var_tpu",)
     code = "\n".join([

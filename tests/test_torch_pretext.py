@@ -62,12 +62,11 @@ def _configs(root, **extra):
     return out
 
 
-@pytest.fixture(scope="module")
-def collected(tmp_path_factory):
+def _collect_both(root, **extra):
     """Both packages' collectors from one seed, and their audio stores."""
     os.environ["VAR_TPU_SYNTH_CLIPS"] = "8"
     try:
-        jcfg, tcfg = _configs(tmp_path_factory.mktemp("collect"))
+        jcfg, tcfg = _configs(root, **extra)
         jconfig.gym_register(jcfg)
         tconfig.gym_register(tcfg)
         jtr = jpretext.PretextTrainer(jcfg)
@@ -79,13 +78,17 @@ def collected(tmp_path_factory):
     return jcfg, tcfg, jtr.audio, ttr.audio
 
 
+@pytest.fixture(scope="module")
+def collected(tmp_path_factory):
+    return _collect_both(tmp_path_factory.mktemp("collect"))
+
+
 def _shards(cfg):
     d = os.path.join(cfg.pretextDataDir[0], "train")
     return sorted(os.listdir(d)), d
 
 
-def test_collection_writes_identical_shards(collected):
-    jcfg, tcfg, _, _ = collected
+def _assert_identical_shards(jcfg, tcfg):
     jnames, jdir = _shards(jcfg)
     tnames, tdir = _shards(tcfg)
     assert jnames == tnames and jnames
@@ -100,7 +103,24 @@ def test_collection_writes_identical_shards(collected):
             for k in a:
                 np.testing.assert_array_equal(a[k], b[k])
         total += len(titems)
-    assert total == sum(SMALL["pretextCollectNum"])
+    assert total == sum(jcfg.pretextCollectNum)
+
+
+def test_collection_writes_identical_shards(collected):
+    jcfg, tcfg, _, _ = collected
+    _assert_identical_shards(jcfg, tcfg)
+
+
+def test_collection_at_the_recipe_knobs_writes_identical_shards(tmp_path):
+    """The arm E2E recipe's VAR knobs (fault F3, step b): a quarter of the
+    poses teleport to the outward flank of an end slot
+    (pretextEndFlankFrac=0.25), representationDim=8. The flank draws come
+    from the sim's RandomState between the walk's, so one draw out of
+    order would shift every later pose."""
+    jcfg, tcfg, _, _ = _collect_both(
+        tmp_path, pretextEndFlankFrac=0.25, representationDim=8,
+        pretextCollectNum=[6, 6, 6, 6, 12])
+    _assert_identical_shards(jcfg, tcfg)
 
 
 def test_clip_banks_are_byte_identical(collected):

@@ -332,8 +332,7 @@ def test_resume_continues_adam_state_and_labels(var_checkpoint):
     assert load_checkpoint(str(root / "rl_model" / "00002"))["step"] == 3
 
 
-@pytest.mark.parametrize("knob,value", [
-    ("RLPipelinedRollout", True), ("meshShape", {"dp": 2})])
+@pytest.mark.parametrize("knob,value", [("meshShape", {"dp": 2})])
 def test_unported_modes_raise_naming_their_roadmap_item(knob, value):
     _, tcfg = _configs(RLTrain=True, **{knob: value})
     trainer = trl.RLTrainer(tcfg, device="cpu")

@@ -12,6 +12,11 @@ from typing import Optional, Sequence
 
 from var_tpu_torch.config import main_config
 
+# options the trainers read with getattr and a default, as the JAX package
+# does, so the profiles do not list them (pretext: the device budget that
+# selects the chunked path, in MiB)
+OPTIONAL_KNOBS = ("pretextHBMBudgetMB",)
+
 
 def parse_args(argv: Optional[Sequence[str]] = None, description: str = ""):
     p = argparse.ArgumentParser(description=description)
@@ -54,6 +59,9 @@ def build_config(args, role: str):
     config = main_config(env=args.env)
     config.pretext_RL = role
     overrides = parse_set_items(args.set)
+    for key in OPTIONAL_KNOBS:
+        if key in overrides:
+            setattr(config, key, overrides.pop(key))
     if overrides:
         try:
             config.override(**overrides)

@@ -2,8 +2,10 @@
 
 Loads 16 kHz mono int16 wav clips keyed by intent index (arm) or by
 (location, object, action) task vocabulary (ai2thor, the FSC corpus) and
-serves per-clip MFCC features to the host sims, and a packed int16 clip bank
-to the pretext trainer, which computes MFCC on the device.
+serves per-clip MFCC features to the host sims, packed int16 clip banks
+(one per STFT param set when the presets mix them) to the pretext trainer,
+which computes MFCC on the device, and packed waveform batches to its
+streaming path.
 
 When the wav corpora are not on disk, a deterministic synthetic source
 generates class-distinguishable clips with the same RandomState seeds
@@ -408,3 +410,116 @@ class AudioStore:
         ids = lo + (rng.rand(len(class_ids)) * (hi - lo)).astype(np.int64)
         zero_mask = class_ids >= self.config.taskNum
         return ids.astype(np.int32), zero_mask
+
+    def sample_clip_batch(self, class_ids: np.ndarray,
+                          rng: np.random.RandomState):
+        """One clip per class id, packed into fixed-size int16 buffers (the
+        streaming path's batches). The empty class gets a zeroed buffer
+        and its zero_mask bit. Returns (buffers (B, buf_len) int16,
+        lengths (B,) int32, zero_mask (B,) bool)."""
+        param = self._default_param()
+        buf_len = self.buf_len
+        B = len(class_ids)
+        bufs = np.zeros((B, buf_len), dtype=np.int16)
+        lengths = np.zeros((B,), dtype=np.int32)
+        zero_mask = np.zeros((B,), dtype=bool)
+        for i, c in enumerate(class_ids):
+            c = int(c)
+            if c >= self.config.taskNum:
+                zero_mask[i] = True
+                lengths[i] = param.hop_length  # 1 valid frame; masked anyway
+                continue
+            clips = self.class_clips(c)
+            clip = clips[rng.randint(len(clips))]
+            max_samples = buf_len - param.n_fft
+            if len(clip) > max_samples:
+                clip = clip[:max_samples]
+            bufs[i] = pack_waveform(clip, buf_len, param.n_fft,
+                                    keep_int16=True)
+            lengths[i] = len(clip)
+        return bufs, lengths, zero_mask
+
+    # -- heterogeneous presets: one bank per STFT param set -----------------
+
+    def param_sets(self) -> List[STFTParams]:
+        """Distinct STFT param sets across the configured datasets, in
+        first-appearance order (the arm 'mix' preset, GoogleCommand 512/160
+        + UrbanSound 1024/640, has two)."""
+        ds = self.config.soundSource["dataset"]
+        ds_list = [ds] if isinstance(ds, str) else list(ds)
+        seen: List[STFTParams] = []
+        for d in ds_list:
+            p = self.param_dict[d]
+            if p not in seen:
+                seen.append(p)
+        return seen
+
+    def buf_len_for(self, param: STFTParams) -> int:
+        return self.config.sound_dim[1] * param.hop_length + param.n_fft
+
+    def build_clip_banks(self):
+        """One packed (M_k, buf_len_k) int16 bank per distinct STFT param
+        set, and per class the row ranges of each dataset it has clips in,
+        so sampling keeps the host's two levels (a dataset uniformly, then
+        a clip). A dataset outside the configured list (the synthetic
+        source) takes the first param set.
+
+        Returns (banks, class_entries): banks a list of (param, wav
+        (M_k, buf_len_k) int16, lengths (M_k,) int32); class_entries[c] a
+        list of (bank index, lo, hi). An empty bank holds one zero row, so
+        every bank has a row to gather."""
+        if self.env_type != "pybullet":
+            raise NotImplementedError(
+                "multi-bank packing is only defined for intent-keyed stores")
+        params = self.param_sets()
+        pidx = {p: k for k, p in enumerate(params)}
+        rows: List[list] = [[] for _ in params]
+        lens: List[list] = [[] for _ in params]
+        class_entries: List[list] = []
+        for c in range(self.config.taskNum):
+            entries = []
+            for ds_name, clips in self.words[c].items():
+                p = self.param_dict.get(ds_name, params[0])
+                k = pidx.get(p, 0)
+                p = params[k]
+                lo = len(rows[k])
+                buf_len = self.buf_len_for(p)
+                for clip in clips:
+                    max_samples = buf_len - p.n_fft
+                    if len(clip) > max_samples:
+                        clip = clip[:max_samples]
+                    rows[k].append(pack_waveform(clip, buf_len, p.n_fft,
+                                                 keep_int16=True))
+                    lens[k].append(len(clip))
+                entries.append((k, lo, len(rows[k])))
+            class_entries.append(entries)
+        banks = []
+        for k, p in enumerate(params):
+            if not rows[k]:
+                rows[k].append(np.zeros(self.buf_len_for(p), np.int16))
+                lens[k].append(p.hop_length)
+            banks.append((p, np.stack(rows[k]).astype(np.int16),
+                          np.asarray(lens[k], dtype=np.int32)))
+        return banks, class_entries
+
+    def sample_clip_ids_multi(self, class_ids: np.ndarray, class_entries,
+                              n_banks: int, rng: np.random.RandomState):
+        """Row ids and bank selectors for the multi-bank step. Returns
+        (ids (B, K) int32, the row in each bank, 0 where unselected;
+        sel (B, K) bool, one True per non-empty row; zero (B,) bool, the
+        empty-intent rows, whose selectors are all False)."""
+        class_ids = np.asarray(class_ids)
+        B = len(class_ids)
+        ids = np.zeros((B, n_banks), np.int32)
+        sel = np.zeros((B, n_banks), bool)
+        zero = np.zeros((B,), bool)
+        for i, c in enumerate(class_ids):
+            c = int(c)
+            if c >= self.config.taskNum:
+                zero[i] = True
+                continue
+            entries = class_entries[c]
+            k, lo, hi = entries[rng.randint(len(entries))]
+            ids[i, k] = lo + rng.randint(hi - lo)
+            sel[i, k] = True
+        return ids, sel, zero

@@ -1,8 +1,9 @@
 """Triplet datasets and shard IO for VAR pretext training (port of
-var_tpu/data/triplets.py, the parts the device-resident path uses).
+var_tpu/data/triplets.py).
 
 Pickle shards hold dicts {'image' (3,96,96) u8, 'ground_truth' int,
-optional 'sound_negative_id' int}; sounds are paired to images by class:
+optional 'sound_negative_id' int, optional precomputed 'sound_positive' /
+'sound_negative' features}; sounds are paired to images by class:
 
 - VARDataset: the image<->sound association is re-sampled every epoch;
 - VARFineTuneDataset: the association is sampled once and frozen;
@@ -16,11 +17,32 @@ from __future__ import annotations
 import glob
 import os
 import pickle
-from typing import List, Optional
+from dataclasses import dataclass
+from typing import Iterator, List, Optional
 
 import numpy as np
 
 from var_tpu_torch.data.audio_store import AudioStore
+
+
+@dataclass
+class TripletBatch:
+    """One host batch for the streaming path. Images stay uint8 and
+    waveforms int16: the /255 and /32768 scalings run on the device, after
+    the smaller uploads."""
+
+    image: np.ndarray        # (B, 3, 96, 96) uint8
+    pos_wav: np.ndarray      # (B, buf_len) int16 packed waveforms
+    pos_len: np.ndarray      # (B,) int32
+    pos_zero: np.ndarray     # (B,) bool, empty-intent rows
+    neg_wav: np.ndarray
+    neg_len: np.ndarray
+    neg_zero: np.ndarray
+    ground_truth: np.ndarray  # (B,) int32
+    # precomputed features (pretextDataHasSound shards, or the host MFCC
+    # of heterogeneous presets)
+    pos_feat: Optional[np.ndarray] = None  # (B, 1, T, 40)
+    neg_feat: Optional[np.ndarray] = None
 
 
 def load_shard(path: str) -> List[dict]:
@@ -47,6 +69,7 @@ class TripletDataset:
         self.rng = np.random.RandomState(seed)
 
         images, gts, sn_ids, sn_random = [], [], [], []
+        pos_feats, neg_feats = [], []
         self.has_sound = False
         for p in shard_paths:
             for item in load_shard(p):
@@ -56,6 +79,10 @@ class TripletDataset:
                 if "sound_negative" in item:
                     # precomputed features: the streaming path's input
                     self.has_sound = True
+                    pos_feats.append(np.asarray(item["sound_positive"],
+                                                np.float32))
+                    neg_feats.append(np.asarray(item["sound_negative"],
+                                                np.float32))
                     sn_ids.append(-1)
                     sn_random.append(False)
                 elif "sound_negative_id" in item:
@@ -76,6 +103,8 @@ class TripletDataset:
         self.gts = np.asarray(gts, dtype=np.int32)
         self.sn_ids = np.asarray(sn_ids, dtype=np.int32)
         self._sn_random = np.asarray(sn_random, dtype=bool)
+        self.pos_feats = np.stack(pos_feats) if pos_feats else None
+        self.neg_feats = np.stack(neg_feats) if neg_feats else None
         # frozen association for fine-tune datasets
         self._frozen_seed = int(self.rng.randint(0, 2**31 - 1))
 
@@ -113,6 +142,84 @@ class TripletDataset:
         neg_ids, neg_zero = self.audio.sample_clip_ids(
             sn_epoch, class_ranges, rng)
         return pos_ids, pos_zero, neg_ids, neg_zero
+
+    def epoch_clip_ids_multi(self, class_entries, n_banks: int, epoch: int):
+        """epoch_clip_ids for heterogeneous presets: per-row bank row ids
+        and bank selectors (AudioStore.sample_clip_ids_multi). Returns
+        ((pos_ids, pos_sel, pos_zero), (neg_ids, neg_sel, neg_zero))."""
+        rng = self._epoch_rng(epoch)
+        sn_epoch = self._epoch_sn_ids(rng)
+        pos = self.audio.sample_clip_ids_multi(
+            self.gts, class_entries, n_banks, rng)
+        neg = self.audio.sample_clip_ids_multi(
+            sn_epoch, class_entries, n_banks, rng)
+        return pos, neg
+
+    def iter_epoch(self, batch_size: int, epoch: int, shuffle: bool = True,
+                   drop_last: bool = False) -> Iterator[TripletBatch]:
+        """Host batches of one epoch, in epoch_order. Shards with features
+        yield them; heterogeneous presets yield host MFCC features, each
+        clip with its own dataset's params; otherwise packed waveforms,
+        drawn per batch (VARDataset) or once over the unshuffled items and
+        indexed (VARFineTuneDataset's frozen association)."""
+        n = len(self)
+        order = np.arange(n)
+        if shuffle:
+            # the order varies per epoch even for fine-tune datasets; only
+            # the image<->sound association is frozen
+            np.random.RandomState(
+                hash((self._frozen_seed, epoch)) % (2**31)).shuffle(order)
+        clip_rng = self._epoch_rng(epoch)
+        sn_epoch = self._epoch_sn_ids(clip_rng)
+
+        if not self.resample_each_epoch:
+            pos_all, pos_len_all, pos_zero_all = self.audio.sample_clip_batch(
+                self.gts, clip_rng)
+            neg_all, neg_len_all, neg_zero_all = self.audio.sample_clip_batch(
+                sn_epoch, clip_rng)
+
+        hetero = not self.audio.params_homogeneous()
+        for start in range(0, n, batch_size):
+            idx = order[start:start + batch_size]
+            if len(idx) < batch_size and drop_last:
+                break
+            image = self.images[idx]
+            gt = self.gts[idx]
+            none6 = dict(pos_wav=None, pos_len=None, pos_zero=None,
+                         neg_wav=None, neg_len=None, neg_zero=None)
+            if self.has_sound:
+                yield TripletBatch(
+                    image=image, ground_truth=gt, **none6,
+                    pos_feat=self.pos_feats[idx],
+                    neg_feat=self.neg_feats[idx])
+                continue
+            sn = sn_epoch[idx]
+            if hetero:
+                pos_feat = np.stack([
+                    self.audio.gen_feat_for_class(int(c), clip_rng)
+                    for c in gt])
+                neg_feat = np.stack([
+                    self.audio.gen_feat_for_class(int(c), clip_rng)
+                    for c in sn])
+                yield TripletBatch(
+                    image=image, ground_truth=gt, **none6,
+                    pos_feat=pos_feat.astype(np.float32),
+                    neg_feat=neg_feat.astype(np.float32))
+                continue
+            if self.resample_each_epoch:
+                pos_wav, pos_len, pos_zero = self.audio.sample_clip_batch(
+                    gt, clip_rng)
+                neg_wav, neg_len, neg_zero = self.audio.sample_clip_batch(
+                    sn, clip_rng)
+            else:
+                pos_wav, pos_len, pos_zero = (
+                    pos_all[idx], pos_len_all[idx], pos_zero_all[idx])
+                neg_wav, neg_len, neg_zero = (
+                    neg_all[idx], neg_len_all[idx], neg_zero_all[idx])
+            yield TripletBatch(
+                image=image, pos_wav=pos_wav, pos_len=pos_len,
+                pos_zero=pos_zero, neg_wav=neg_wav, neg_len=neg_len,
+                neg_zero=neg_zero, ground_truth=gt)
 
     def epoch_order(self, epoch: int, shuffle: bool = True) -> np.ndarray:
         order = np.arange(len(self))

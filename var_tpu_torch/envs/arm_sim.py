@@ -28,8 +28,8 @@ by design.
 
 A copy of var_tpu/envs/arm_sim.py that draws from its numpy RandomState in
 the same order, so both packages collect byte-identical shards from one
-seed. Episode-image recording, render playback and manual pair saving
-wait for the RL slice; the constructor raises where a config asks for them.
+seed. Episode-image recording and render playback wait for a later slice;
+the constructor raises where a config asks for them.
 """
 from __future__ import annotations
 
@@ -95,6 +95,7 @@ class FourInARowSim(Env):
         self.goal_sound = None
         self.ground_truth = None
         self.goal_area_count = 0
+        self.saved_pairs = []  # manual collection
 
         # per-class episode quotas for eval (fourInARow.py:92-96)
         self.size_per_class = np.zeros((c.taskNum,), dtype=np.int64)
@@ -413,6 +414,24 @@ class FourInARowSim(Env):
 
     def render(self, mode="human"):
         return self.get_image()
+
+    def saveManualPairs(self):
+        """Flush manually collected pairs to a timestamped shard; returns
+        its path, or None when no pair is buffered."""
+        import os
+        from datetime import datetime
+
+        from var_tpu_torch.data.triplets import save_shard
+
+        if not self.saved_pairs:
+            return None
+        name = "data_" + datetime.now().strftime("%m_%d_%Y_%H_%M_%S_%f")
+        path = os.path.join(self.config.pretextDataDir[0], "train",
+                            name + ".pickle")
+        save_shard(path, list(self.saved_pairs))
+        self.saved_pairs.clear()
+        print("Data saved to", self.config.pretextDataDir[0])
+        return path
 
 
 class FourInARowPretextSim(FourInARowSim):

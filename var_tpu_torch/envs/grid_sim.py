@@ -35,9 +35,9 @@ A copy of var_tpu/envs/grid_sim.py that draws from its numpy RandomState in
 the same order, so both packages collect byte-identical shards and episodes
 from one seed. The first-person frame is the JAX package's numpy raycast
 (`_render_numpy`), which its tests hold bit-identical to its native C++
-renderer; the port does not load that library. Episode-image recording,
-render playback and manual pair saving are not ported: the constructor
-raises where a config asks for them.
+renderer; the port does not load that library. Episode-image recording
+and render playback are not ported: the constructor raises where a config
+asks for them.
 """
 from __future__ import annotations
 
@@ -117,6 +117,7 @@ class GridHouseSim(Env):
         self.episodeReward = 0.0
         self.done = False
         self.goal_area_count = 0
+        self.saved_pairs = []  # manual collection
         self.transcription = ""
 
         # task list (reference: RL_env_VAR.py taskList/task2ID built from
@@ -484,6 +485,24 @@ class GridHouseSim(Env):
 
     def render(self, mode="human"):
         return self.get_image()
+
+    def saveManualPairs(self):
+        """Flush manually collected pairs to a timestamped shard; returns
+        its path, or None when no pair is buffered."""
+        import os
+        from datetime import datetime
+
+        from var_tpu_torch.data.triplets import save_shard
+
+        if not self.saved_pairs:
+            return None
+        name = "data_" + datetime.now().strftime("%m_%d_%Y_%H_%M_%S_%f")
+        path = os.path.join(self.config.pretextDataDir[0], "train",
+                            name + ".pickle")
+        save_shard(path, list(self.saved_pairs))
+        self.saved_pairs.clear()
+        print("Data saved to", self.config.pretextDataDir[0])
+        return path
 
 
 class GridHousePretextSim(GridHouseSim):

@@ -11,6 +11,12 @@ place:
 - GAE and the PPO update read the buffers where they lie, and
   after_update copies the tail to the head.
 
+The packed array's copy starts at dispatch (step_async): on CUDA it goes
+into one of two pinned host buffers, non-blocking, with an event that
+read_packed waits on. Two buffers alternate, so in the pipelined protocol
+(RLPipelinedRollout: the host reads step t after dispatching step t+1) the
+in-flight step's copy never lands in a buffer not yet read.
+
 Per step the host uploads the uint8 image, the robot pose (arm) or the
 uint8 occupancy crop (ai2thor; the policy scales it by 1/255), a small
 packed (N, 4) array [fresh, done, bad_mask, env_reward], and, only when
@@ -96,6 +102,8 @@ class DeviceRolloutEngine:
         self.device = torch.device(device)
         self.generator = generator
         self._returns = None
+        self._pinned = None  # two pinned (N, A+1) readback buffers (CUDA)
+        self._slot = 0
 
         D = config.representationDim
         H = policy.recurrent_hidden_state_size
@@ -260,9 +268,9 @@ class DeviceRolloutEngine:
         return action.cpu().numpy()
 
     def step_async(self, t: int, raw_obs, env_reward, done, bad_masks,
-                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Dispatch one fused step; returns the packed device output
-        without waiting for it."""
+                   noise: Optional[torch.Tensor] = None):
+        """Dispatch one fused step and the copy of its packed output to the
+        host; returns a handle for read_packed without waiting."""
         goal = np.asarray(raw_obs["goal_sound"], np.float32)
         fresh = self._fresh(goal)
         # a step where every row reuses its cached goal skips the sound
@@ -274,14 +282,35 @@ class DeviceRolloutEngine:
              np.asarray(env_reward, np.float32)], axis=1)
         cur = (self._put(np.asarray(raw_obs["current_sound"], np.float32))
                if self.sound_sound else None)
-        return self._collect_step(
+        return self._readback_async(self._collect_step(
             t, self._put(raw_obs["image"]), self._extra(raw_obs),
             self._put(goal) if use_sound else None, cur,
-            self._put(packed_host), use_sound, noise)
+            self._put(packed_host), use_sound, noise))
 
-    def read_packed(self, packed: torch.Tensor):
-        """THE one device->host copy of a step: (action, raw_reward)."""
-        host = packed.cpu().numpy()
+    def _readback_async(self, packed: torch.Tensor):
+        """Start THE one device->host copy of a step: on CUDA into the next
+        pinned buffer, with an event after it; on the CPU the tensor is
+        already on the host."""
+        if packed.device.type != "cuda":
+            return packed
+        if self._pinned is None:
+            self._pinned = [torch.empty(packed.shape, dtype=packed.dtype,
+                                        pin_memory=True) for _ in range(2)]
+        host = self._pinned[self._slot]
+        self._slot ^= 1
+        host.copy_(packed, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def read_packed(self, handle):
+        """Wait for a step's readback: (action, raw_reward) on the host."""
+        if isinstance(handle, tuple):
+            pinned, done = handle
+            done.synchronize()
+            host = pinned.numpy().copy()  # the buffer is reused in 2 steps
+        else:
+            host = handle.cpu().numpy()
         action = host[:, :-1]
         if self.buffers.actions.dtype == torch.int32:
             action = action.astype(np.int32)

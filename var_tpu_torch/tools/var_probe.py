@@ -87,13 +87,15 @@ def probe_2d(cfg, model, n_layouts=3, seed=11, verbose=True, device="cpu"):
     """The (x, y) reward landscape scored against the ray-test hit box, the
     eval's success rule: per (layout, class) the peak's offset from the
     object and whether the peak pose's ray cast hits the commanded object.
-    Returns (peak-in-hit-box rate, mean |peak offset| in m)."""
+    Returns (peak-in-hit-box rate, mean |peak offset| in m); verbose
+    output also splits the rate by class."""
     env = _env(cfg, seed)
     rng = np.random.RandomState(seed)
     feats = _class_feats(cfg, model, env, rng, device)
     xs = np.linspace(cfg.xMin, cfg.xMax, 21)
     ys = np.linspace(cfg.yMin, cfg.yMax, 41)
     in_box, offsets = 0, []
+    box_by_class = np.zeros(cfg.taskNum, np.int64)
     for _ in range(n_layouts):
         env._randomize()
         imgs = []
@@ -112,6 +114,7 @@ def probe_2d(cfg, model, n_layouts=3, seed=11, verbose=True, device="cpu"):
             hit = env.ray_test()
             ok = hit >= 0 and env.objOrder[hit] == cls
             in_box += int(ok)
+            box_by_class[cls] += int(ok)
             if verbose:
                 print(f"  cls{cls}: peak offset ({off[0]:+.3f},{off[1]:+.3f})"
                       f" R={R[i, j, cls]:.2f} in_box={ok}")
@@ -121,6 +124,8 @@ def probe_2d(cfg, model, n_layouts=3, seed=11, verbose=True, device="cpu"):
     if verbose:
         print(f"probe_2d: peak-in-hit-box {rate:.2f} ({in_box}/{n}), "
               f"mean |peak offset| {mean_off * 100:.1f} cm")
+        print("probe_2d by class: " + ", ".join(
+            f"cls{c} {k}/{n_layouts}" for c, k in enumerate(box_by_class)))
     return rate, mean_off
 
 

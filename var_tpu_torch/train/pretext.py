@@ -1,21 +1,28 @@
-"""VAR pretext training in PyTorch (port of var_tpu/train/pretext.py, the
-device-resident path).
+"""VAR pretext training in PyTorch (port of var_tpu/train/pretext.py).
 
-- The image set and the packed int16 clip bank are uploaded to the device
-  once; each epoch uploads only its (steps, batch) index arrays.
-- Each step gathers the batch with index_select, computes MFCC for the
-  positive and the negative sound (ops/audio.py::sound_features; with
-  audioBackend='pallas' the mel-log-DCT tail runs in the hand-written CUDA
-  kernel), runs both encoders, the triplet margin loss and an L2-Adam
-  update (torch Adam weight_decay: the decay is added to the gradient
-  before the moments, as the JAX package's optax chain does) with the
-  multistep LR schedule.
-- The epoch is a Python loop that does not synchronise: the losses are
-  read back once, at the end of the epoch.
+Every step computes MFCC for the positive and the negative sound
+(ops/audio.py::sound_features; with audioBackend='pallas' the mel-log-DCT
+tail runs in the hand-written CUDA kernel), runs both encoders, the
+triplet margin loss and an L2-Adam update (torch Adam weight_decay: the
+decay is added to the gradient before the moments, as the JAX package's
+optax chain does) with the multistep LR schedule. The epoch is a Python
+loop that does not synchronise: the losses are read back once, at its end.
+_upload_dataset picks one of four paths:
+- resident: the image set and the packed int16 clip bank live on the
+  device; each epoch uploads only its (steps, batch) index arrays;
+- multi-bank (heterogeneous STFT presets, the arm 'mix'): one packed bank
+  per STFT param set; a step runs one MFCC per param set and merges the
+  rows by the bank selector and the zero mask;
+- chunked (an image set larger than pretextHBMBudgetMB): the clip bank
+  stays resident, the images go up in fixed contiguous slabs, the next
+  slab's upload overlapping the current slab's steps;
+- streaming (shards with precomputed features): host batches with one
+  batch's upload in flight.
+On CUDA the chunk and batch uploads copy from pinned memory on a side
+stream; the compute stream waits on their events.
 
-The chunked (larger than device memory), streaming and heterogeneous
-multi-bank paths, plotting and manual collection wait for later slices and
-raise NotImplementedError where the JAX package would take them.
+testRepresentation writes the embedding points to representation.npz (the
+PNG plot draws with matplotlib, which the port does not use).
 """
 from __future__ import annotations
 
@@ -29,7 +36,7 @@ import numpy as np
 import torch
 
 from var_tpu_torch.data.audio_store import AudioStore
-from var_tpu_torch.data.triplets import load_env_data, save_shard
+from var_tpu_torch.data.triplets import TripletBatch, load_env_data, save_shard
 from var_tpu_torch.device import resolve_device
 from var_tpu_torch.models.encoders import build_pretext_model
 from var_tpu_torch.ops.audio import sound_features
@@ -100,6 +107,7 @@ class PretextTrainer:
         self.lr_fn = None
         self.step = 0
         self._param = None  # STFT params of the active dataset
+        self._h2d_stream = None  # CUDA side stream of the async uploads
         # (items, seconds) per epoch of the last trainRepresentation call;
         # each epoch's time ends at its loss readback, which synchronises
         self.epoch_stats = []
@@ -163,15 +171,25 @@ class PretextTrainer:
             cfg.sound_dim[1], self._param, backend=cfg.audioBackend,
             zero_mask=zero)
 
-    def _train_step_indexed(self, bank, img_idx, pos_idx, pos_zero, neg_idx,
-                            neg_zero) -> torch.Tensor:
-        """One step over the device-resident dataset: gathers, MFCC of both
-        sounds (no gradient, as in the JAX step), forward, backward, Adam.
-        Returns the loss as a device scalar, without synchronising."""
-        image = bank["images"].index_select(0, img_idx).float() * (1.0 / 255.0)
-        with torch.no_grad():
-            pos_feat = self._features(bank, pos_idx, pos_zero)
-            neg_feat = self._features(bank, neg_idx, neg_zero)
+    def _multi_features(self, bank, ids, sel, zero):
+        """One MFCC per STFT param set, each over the rows its bank holds
+        (the others masked to zero), summed: every row has one bank."""
+        cfg = self.config
+        total = None
+        for k, p in enumerate(bank["multi_params"]):
+            wav, lens = bank["multi_wav"][k], bank["multi_len"][k]
+            f = sound_features(
+                wav.index_select(0, ids[:, k]), lens.index_select(0, ids[:, k]),
+                cfg.sound_dim[1], p, backend=cfg.audioBackend,
+                zero_mask=torch.logical_or(~sel[:, k], zero))
+            total = f if total is None else total + f
+        return total
+
+    def _optimize(self, image, pos_feat, neg_feat) -> torch.Tensor:
+        """Forward, backward and Adam on one batch (uint8 images are scaled
+        here). Returns the loss as a device scalar, without synchronising."""
+        if image.dtype == torch.uint8:
+            image = image.float() * (1.0 / 255.0)
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr_fn(self.step)
         self.optimizer.zero_grad(set_to_none=True)
@@ -184,51 +202,246 @@ class PretextTrainer:
         self.step += 1
         return loss.detach()
 
+    def _train_step_indexed(self, bank, img_idx, pos_idx, pos_zero, neg_idx,
+                            neg_zero) -> torch.Tensor:
+        """One step over the device-resident dataset: gathers, MFCC of both
+        sounds (no gradient, as in the JAX step), then _optimize."""
+        image = bank["images"].index_select(0, img_idx)
+        with torch.no_grad():
+            pos_feat = self._features(bank, pos_idx, pos_zero)
+            neg_feat = self._features(bank, neg_idx, neg_zero)
+        return self._optimize(image, pos_feat, neg_feat)
+
+    def _train_step_multi(self, bank, img_idx, pos_ids, pos_sel, pos_zero,
+                          neg_ids, neg_sel, neg_zero) -> torch.Tensor:
+        """The multi-bank step: ids and selectors are (B, K), one column per
+        STFT param set."""
+        image = bank["images"].index_select(0, img_idx)
+        with torch.no_grad():
+            pos_feat = self._multi_features(bank, pos_ids, pos_sel, pos_zero)
+            neg_feat = self._multi_features(bank, neg_ids, neg_sel, neg_zero)
+        return self._optimize(image, pos_feat, neg_feat)
+
+    def _train_step_wav(self, image, pos_wav, pos_len, pos_zero, neg_wav,
+                        neg_len, neg_zero) -> torch.Tensor:
+        """The streaming step over uploaded packed waveforms."""
+        cfg = self.config
+        with torch.no_grad():
+            pos_feat = sound_features(pos_wav, pos_len, cfg.sound_dim[1],
+                                      self._param, backend=cfg.audioBackend,
+                                      zero_mask=pos_zero)
+            neg_feat = sound_features(neg_wav, neg_len, cfg.sound_dim[1],
+                                      self._param, backend=cfg.audioBackend,
+                                      zero_mask=neg_zero)
+        return self._optimize(image, pos_feat, neg_feat)
+
+    def _train_step_feat(self, image, pos_feat, neg_feat) -> torch.Tensor:
+        """The streaming step over precomputed features (pretextDataHasSound
+        shards): no MFCC, so no kernel launch."""
+        return self._optimize(image, pos_feat, neg_feat)
+
+    # -- uploads ---------------------------------------------------------------
+
+    def _put(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _upload_async(self, arrays):
+        """Host arrays to the device without waiting: on CUDA, copies from
+        pinned memory on a side stream; returns (tensors, the CUDA event
+        that marks them ready, or None on the CPU). Callable from a worker
+        thread. The caching host allocator keeps a pinned buffer until the
+        copy that reads it has run, so the host copies may be dropped."""
+        if self.device.type != "cuda":
+            return tuple(self._put(a) for a in arrays), None
+        if self._h2d_stream is None:
+            self._h2d_stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._h2d_stream):
+            out = tuple(
+                torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(
+                    self.device, non_blocking=True) for a in arrays)
+            ready = torch.cuda.Event()
+            ready.record(self._h2d_stream)
+        return out, ready
+
+    def _wait_upload(self, tensors, ready):
+        """Make the compute stream wait for an _upload_async, and tell the
+        allocator that stream uses the tensors, so their memory is not
+        handed to another upload while a step may still read it."""
+        if ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(ready)
+            for t in tensors:
+                t.record_stream(stream)
+        return tensors
+
     def _upload_dataset(self, ds):
-        """Images + packed clip bank + lengths on the device, once."""
-        if ds.has_sound:
-            raise NotImplementedError(
-                "shards with precomputed sound features take the streaming "
-                "path, which is not ported yet")
-        if not self.audio.params_homogeneous():
-            raise NotImplementedError(
-                "heterogeneous STFT presets need the multi-bank path, which "
-                "is not ported yet")
-        bank, lengths, ranges = self.audio.build_clip_bank()
-        budget = int(getattr(self.config, "pretextHBMBudgetMB", 8192)) * 2 ** 20
-        if ds.images.nbytes > budget - bank.nbytes:
-            raise NotImplementedError(
-                "the image set exceeds the device budget; the chunked path "
-                "is not ported yet")
+        """The dataset's device form, which picks the epoch path: resident
+        (images + packed clip bank + lengths), chunked (the bank only, when
+        the images exceed pretextHBMBudgetMB less the bank), multi-bank
+        (heterogeneous STFT presets of the arm store), or None for
+        streaming (shards with precomputed features, or a heterogeneous
+        ai2thor store)."""
+        if ds.has_sound or len(ds) == 0:
+            return None
+        if self.audio.params_homogeneous():
+            bank, lengths, ranges = self.audio.build_clip_bank()
+            budget = int(getattr(self.config, "pretextHBMBudgetMB",
+                                 8192)) * 2 ** 20
+            free = budget - bank.nbytes
+            if ds.images.nbytes > free:
+                return {"chunked": True, "wav": self._put(bank),
+                        "len": self._put(lengths), "ranges": ranges,
+                        # half the rest per chunk: one in use, one in flight
+                        "chunk_bytes": max(2 ** 20, free // 2)}
+            return {"images": self._put(ds.images), "wav": self._put(bank),
+                    "len": self._put(lengths), "ranges": ranges}
+        if self.audio.env_type != "pybullet":
+            return None
+        banks, entries = self.audio.build_clip_banks()
+        # the step reads the param sets from the upload, so a new upload
+        # with other presets takes its own params
+        return {"images": self._put(ds.images),
+                "multi_params": tuple(p for p, _, _ in banks),
+                "multi_wav": tuple(self._put(w) for _, w, _ in banks),
+                "multi_len": tuple(self._put(n) for _, _, n in banks),
+                "entries": entries}
 
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
-        return {"images": put(ds.images), "wav": put(bank),
-                "len": put(lengths), "ranges": ranges}
+    # -- epochs ------------------------------------------------------------------
 
     def _run_epoch_indexed(self, ds, bank, batch_size: int, epoch: int):
-        """One epoch over the device-resident dataset. The last ragged
-        batch wraps around so every step has the same shape."""
+        """One epoch over the device-resident dataset (single or multi
+        bank). The last ragged batch wraps around so every step has the
+        same shape."""
         order = ds.epoch_order(epoch, shuffle=True)
         n = len(order)
         steps = max(1, -(-n // batch_size))
         reps = -(-(steps * batch_size) // max(1, n))
-        padded = np.tile(order, reps + 1)[: steps * batch_size]
-        idx = padded.reshape(steps, batch_size)
+        idx = np.tile(order, reps + 1)[: steps * batch_size].reshape(
+            steps, batch_size)
+        img_i = self._put(idx.astype(np.int64))
+        if "multi_wav" in bank:
+            pos, neg = ds.epoch_clip_ids_multi(
+                bank["entries"], len(bank["multi_wav"]), epoch)
+            cols = [self._put(a[idx].astype(np.int64) if a.dtype != bool
+                              else a[idx]) for a in (*pos, *neg)]
+            losses = [self._train_step_multi(bank, img_i[s],
+                                             *(c[s] for c in cols))
+                      for s in range(steps)]
+            return torch.stack(losses).tolist(), n
         pos_ids, pos_zero, neg_ids, neg_zero = ds.epoch_clip_ids(
             bank["ranges"], epoch)
-
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
-        img_i = put(idx.astype(np.int64))
+        put = self._put
         pos_i, pos_z = put(pos_ids[idx].astype(np.int64)), put(pos_zero[idx])
         neg_i, neg_z = put(neg_ids[idx].astype(np.int64)), put(neg_zero[idx])
         losses = [
             self._train_step_indexed(bank, img_i[s], pos_i[s], pos_z[s],
                                      neg_i[s], neg_z[s])
             for s in range(steps)]
+        return torch.stack(losses).tolist(), n
+
+    def _run_epoch_chunked(self, ds, bank, batch_size: int, epoch: int):
+        """One epoch of an image set larger than the device budget.
+
+        Items stay in fixed contiguous slabs of the image array, so a chunk
+        uploads as one contiguous copy. The visit order within a slab is
+        the global epoch order restricted to it, so a single slab gives the
+        resident path's losses; an item stays in its slab across epochs,
+        so batches mix within one slab at a time. Slab k+1's upload runs on
+        a worker thread (and on CUDA a side stream) while slab k's steps
+        run; a ragged last slab wraps within itself, so every slab runs
+        chunk_items // batch_size steps."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        item_bytes = int(ds.images[0].nbytes)
+        chunk_items = max(batch_size,
+                          int(bank["chunk_bytes"] // item_bytes)
+                          // batch_size * batch_size)
+        order = ds.epoch_order(epoch, shuffle=True)
+        n = len(order)
+        pos_ids, pos_zero, neg_ids, neg_zero = ds.epoch_clip_ids(
+            bank["ranges"], epoch)
+        n_chunks = -(-n // chunk_items)
+        slab_of = order // chunk_items
+        S = chunk_items // batch_size
+        sh = (S, batch_size)
+
+        def produce(ci):
+            a = ci * chunk_items
+            b = min(a + chunk_items, n)
+            img = ds.images[a:b]
+            if b - a < chunk_items:  # ragged final slab: pad by wrapping
+                reps = -(-chunk_items // (b - a))
+                img = np.concatenate([img] * reps)[:chunk_items]
+            visit = order[slab_of == ci]
+            if len(visit) < chunk_items:
+                reps = -(-chunk_items // max(1, len(visit)))
+                visit = np.tile(visit, reps)[:chunk_items]
+            local = (visit - a).astype(np.int64) % (b - a)
+            return self._upload_async((
+                img, local.reshape(sh),
+                pos_ids[visit].astype(np.int64).reshape(sh),
+                pos_zero[visit].reshape(sh),
+                neg_ids[visit].astype(np.int64).reshape(sh),
+                neg_zero[visit].reshape(sh)))
+
+        losses = []
+        with ThreadPoolExecutor(max_workers=1,
+                                thread_name_prefix="chunk-upload") as ex:
+            fut = ex.submit(produce, 0)
+            for ci in range(n_chunks):
+                d_img, l_i, p_i, p_z, n_i, n_z = self._wait_upload(
+                    *fut.result())
+                if ci + 1 < n_chunks:
+                    fut = ex.submit(produce, ci + 1)
+                slab = {"images": d_img, "wav": bank["wav"],
+                        "len": bank["len"]}
+                losses += [self._train_step_indexed(slab, l_i[s], p_i[s],
+                                                    p_z[s], n_i[s], n_z[s])
+                           for s in range(S)]
+        return torch.stack(losses).tolist(), n
+
+    def _device_batch(self, batch: TripletBatch):
+        """A host batch's upload: (tensors, ready) as _upload_async.
+        Images go as uint8 and waveforms as int16, scaled on the device."""
+        arrays = (batch.image,)
+        if batch.pos_feat is not None:
+            arrays += (batch.pos_feat, batch.neg_feat)
+        else:
+            arrays += (batch.pos_wav, batch.pos_len, batch.pos_zero,
+                       batch.neg_wav, batch.neg_len, batch.neg_zero)
+        return self._upload_async(arrays)
+
+    def _prefetch_epoch(self, ds, batch_size: int, epoch: int):
+        """The streaming path's batches, (host batch, device tensors), with
+        the next batch assembled and uploaded on a worker thread while the
+        current one trains: one batch in flight."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        it = ds.iter_epoch(batch_size, epoch=epoch, shuffle=True,
+                           drop_last=False)
+
+        def produce():
+            b = next(it, None)
+            return None if b is None else (b, self._device_batch(b))
+
+        with ThreadPoolExecutor(max_workers=1,
+                                thread_name_prefix="h2d-prefetch") as ex:
+            fut = ex.submit(produce)
+            while True:
+                item = fut.result()
+                if item is None:
+                    return
+                fut = ex.submit(produce)
+                yield item[0], self._wait_upload(*item[1])
+
+    def _run_epoch_streaming(self, ds, batch_size: int, epoch: int):
+        losses, n = [], 0
+        for batch, dev in self._prefetch_epoch(ds, batch_size, epoch):
+            if batch.pos_feat is not None:
+                losses.append(self._train_step_feat(*dev))
+            else:
+                losses.append(self._train_step_wav(*dev))
+            n += len(batch.ground_truth)
         return torch.stack(losses).tolist(), n
 
     # -- the training loop ---------------------------------------------------
@@ -269,8 +482,15 @@ class PretextTrainer:
         self.epoch_stats = []
         for ep in range(epoch):
             t_ep = time.perf_counter()
-            losses, n = self._run_epoch_indexed(
-                ds, bank, batch_size, start_ep + ep)
+            if bank is None:
+                losses, n = self._run_epoch_streaming(
+                    ds, batch_size, start_ep + ep)
+            elif bank.get("chunked"):
+                losses, n = self._run_epoch_chunked(
+                    ds, bank, batch_size, start_ep + ep)
+            else:
+                losses, n = self._run_epoch_indexed(
+                    ds, bank, batch_size, start_ep + ep)
             self.epoch_stats.append((n, time.perf_counter() - t_ep))
             avg_loss = float(np.mean(losses))
             loss_list.append(avg_loss)
@@ -360,20 +580,125 @@ class PretextTrainer:
         envs.close()
         return epoch
 
+    # -- embedding export ------------------------------------------------------
+
+    @torch.no_grad()
+    def project_embeddings(self, dataset, max_batches: Optional[int] = None):
+        """Images and positive sounds through the VAR, in item order:
+        {'img': (N, D+1), 'sound': (N, D+1)}, the label in the last
+        column. Shards without features take one MFCC per batch, the
+        positive sound's."""
+        cfg = self.config
+        self._ensure_audio()
+        max_batches = cfg.plotNumBatch if max_batches is None else max_batches
+        img_pts, sound_pts = [], []
+        for n, batch in enumerate(dataset.iter_epoch(
+                cfg.pretextTestBatchSize, epoch=0, shuffle=False)):
+            if n >= max_batches:
+                break
+            if batch.pos_feat is not None:
+                pos_feat = self._put(batch.pos_feat)
+            else:
+                pos_feat = sound_features(
+                    self._put(batch.pos_wav), self._put(batch.pos_len),
+                    cfg.sound_dim[1], self._param, backend=cfg.audioBackend,
+                    zero_mask=self._put(batch.pos_zero))
+            image = self._put(batch.image).float() * (1.0 / 255.0)
+            img_f = self.model.encode_image(image)[1]
+            snd_f = self.model.encode_sound(pos_feat)[1]
+            gt = batch.ground_truth[:, None].astype(np.float32)
+            img_pts.append(np.concatenate([img_f.cpu().numpy(), gt], axis=1))
+            sound_pts.append(np.concatenate([snd_f.cpu().numpy(), gt],
+                                            axis=1))
+        return {"img": np.concatenate(img_pts, axis=0),
+                "sound": np.concatenate(sound_pts, axis=0)}
+
+    def testRepresentation(self, dataset=None):
+        """pretextTestMethod 'plot' (the arm profile, which lists no
+        method, takes it too): the points the JAX package's plot draws,
+        written to <pretextModelSaveDir>/representation.npz ('img' and
+        'sound', each (N, D+1) with the label column); returns its path."""
+        cfg = self.config
+        method = getattr(cfg, "pretextTestMethod", "plot")
+        if method != "plot":
+            raise NotImplementedError(method)
+        ds = dataset if dataset is not None else load_env_data(
+            cfg, self._ensure_audio())
+        if self.model is None:
+            self.loadPretextModel()
+        self.model.eval()
+        pts = self.project_embeddings(ds)
+        os.makedirs(cfg.pretextModelSaveDir, exist_ok=True)
+        path = os.path.join(cfg.pretextModelSaveDir, "representation.npz")
+        np.savez(path, img=pts["img"], sound=pts["sound"])
+        print("representation points saved to", path)
+        return path
+
+    # -- manual collection -----------------------------------------------------
+
+    def manuallyCollectPretextData(self, input_fn=None,
+                                   max_steps: Optional[int] = None):
+        """Manual triplet collection on one pretext sim. Commands from
+        `input_fn` (default: single keys on a TTY, else lines): any other
+        command steps the sim, 'r' stores the current pair, 'z' flushes
+        the stored pairs to a timestamped shard, 'q'/'quit' or the end of
+        input stops; the last pairs are flushed on exit. Returns the last
+        shard's path (None if nothing was left to flush)."""
+        from var_tpu_torch.envs.core import make
+        from var_tpu_torch.utils.teleop import make_input_fn
+
+        cfg = self.config
+        if cfg.realTimeVec:
+            raise NotImplementedError(
+                "realTimeVec draws with matplotlib, which the port does not "
+                "use (ROADMAP 'Modules left to port': Options that still "
+                "raise)")
+        self._ensure_audio()
+        env = make(cfg.pretextEnvName)
+        env.unwrapped.audio = self.audio
+        env.seed(cfg.pretextEnvSeed)
+        input_fn = input_fn or make_input_fn("collect [step|r|z|quit]> ")
+        obs = env.reset()
+        steps = 0
+        while max_steps is None or steps < max_steps:
+            try:
+                cmd = (input_fn() or "").strip()
+            except (EOFError, StopIteration):
+                break
+            if cmd in ("quit", "q"):
+                break
+            if cmd == "r":
+                env.unwrapped.saved_pairs.append(
+                    {k: np.asarray(v) for k, v in obs.items()})
+                print("Number of pairs collected",
+                      len(env.unwrapped.saved_pairs))
+                continue
+            if cmd == "z":
+                env.unwrapped.saveManualPairs()
+                continue
+            obs, _, done, _ = env.step(
+                np.zeros(getattr(cfg, "pretextActionDim", (1,)), np.float32))
+            steps += 1
+            if done:
+                obs = env.reset()
+        path = env.unwrapped.saveManualPairs()
+        env.close()
+        return path
+
     # -- mode dispatch ---------------------------------------------------------
 
     def run(self):
-        """Collection / training dispatch from config booleans."""
+        """Collection / training / testing dispatch from config booleans."""
         from var_tpu_torch.config import gym_register
 
         cfg = self.config
         gym_register(cfg)
         if cfg.pretextManualControl or cfg.pretextManualCollect:
-            raise NotImplementedError("manual collection is not ported yet")
+            self.manuallyCollectPretextData()
+            return
         if cfg.pretextCollection:
             self.collectPretextData()
         if cfg.pretextTrain:
             self.trainRepresentation(epoch=cfg.pretextEpoch, lr=cfg.pretextLR)
         elif not cfg.pretextCollection:
-            raise NotImplementedError(
-                "testRepresentation (the embedding plot) is not ported yet")
+            self.testRepresentation()

@@ -5,7 +5,8 @@ var_tpu/train/rl.py: the fused, device-sim and reward-wrapper paths).
   (frozen-VAR encode, dot reward, return normalisation, recurrent policy
   act; one packed readback per env step) -> GAE -> the PPO update on the
   rollout buffers; deterministic per-class evaluation through the same
-  fused step;
+  fused step; RLPipelinedRollout reads each step back one step late, so
+  the sims' step overlaps the device's;
 - RLDeviceSimRollout / RLDeviceSimEval: the sim itself on the device (the
   arm's DeviceSimEngine, the ai2thor grid's GridDeviceSimEngine,
   rl/device_sim.py), one small read per PPO update or per evaluation;
@@ -18,13 +19,14 @@ var_tpu/train/rl.py: the fused, device-sim and reward-wrapper paths).
 
 The other modes of the JAX package wait for later slices and raise
 NotImplementedError naming their ROADMAP entry ("Modules left to port") by
-its title: RLPipelinedRollout, manual control and meshShape (parallelism).
+its title: manual control and meshShape (parallelism).
 """
 from __future__ import annotations
 
 import csv
 import os
 import time
+import warnings
 from collections import deque
 from typing import Optional
 
@@ -160,9 +162,10 @@ class RLTrainer:
         self.policy = policy.to(self.device)
         return self.policy
 
-    def setup_fused(self):
+    def setup_fused(self, init_noise: Optional[torch.Tensor] = None):
         """Everything _train_fused does before its loop: envs, policy (or
-        the fine-tune checkpoint), engine, PPO state, the first action."""
+        the fine-tune checkpoint), engine, PPO state, the first action.
+        `init_noise`, if given, replaces the generator's draw for it."""
         cfg = self.config
         if self.pretext_model is None:
             raise RuntimeError("load_pretext() first: the reward needs the "
@@ -178,38 +181,67 @@ class RLTrainer:
             resume = self.load_policy_state(cfg.RLModelLoadDir)
         self.ppo = PPO(self.policy, PPOConfig.from_config(cfg))
         self._resume_state(resume)
-        action = engine.init(raw_obs)
+        action = engine.init(raw_obs, init_noise)
         self.episode_rewards = deque(maxlen=10)
         self.env_rewards = np.zeros(N)
         return envs, engine, action
 
-    def rollout(self, envs, engine, action):
-        """T env steps through the fused engine; returns the next action."""
+    def _log_rewards(self, raw_rew, done):
+        self.env_rewards = self.env_rewards + raw_rew
+        for index in np.where(done)[0]:
+            self.episode_rewards.append(self.env_rewards[index])
+            self.env_rewards[index] = 0.0
+
+    def rollout(self, envs, engine, action, pipelined: bool = False,
+                noise: Optional[torch.Tensor] = None):
+        """T env steps through the fused engine; returns the next action.
+        `noise` (T, ...), if given, replaces the generator's draws.
+
+        pipelined (RLPipelinedRollout): the host steps the sims with the
+        action of the step before the newest, so the sims' step overlaps
+        the device's fused step and its readback. Step t's readback is
+        read after step t+1's dispatch; the first step of the rollout
+        keeps the action it was given, and the last step is drained at the
+        end, so every reward is counted once and the next rollout starts
+        from the freshest action. The stored rollout stays consistent
+        (action_t is the policy's draw at obs_t), but the sims apply each
+        action one step late, a delay the policy cannot observe."""
+        pending = None  # (handle, done) of the step not yet read back
         for step in range(engine.T):
             with self.timer.phase("env_step"):
                 raw_obs, env_rew, done, infos = envs.step(action)
+            done = np.array(done)
             bad_masks = np.asarray(
                 [0.0 if "bad_transition" in info else 1.0 for info in infos],
                 np.float32)
             with self.timer.phase("fused_step"):
-                action, raw_rew = engine.step(step, raw_obs, env_rew, done,
-                                              bad_masks)
-            self.env_rewards = self.env_rewards + raw_rew
-            for index in np.where(done)[0]:
-                self.episode_rewards.append(self.env_rewards[index])
-                self.env_rewards[index] = 0.0
+                handle = engine.step_async(
+                    step, raw_obs, env_rew, done, bad_masks,
+                    None if noise is None else noise[step])
+                if not pipelined:
+                    action, raw_rew = engine.read_packed(handle)
+                    self._log_rewards(raw_rew, done)
+                    continue
+                if pending is not None:
+                    action, raw_rew = engine.read_packed(pending[0])
+                    self._log_rewards(raw_rew, pending[1])
+                pending = (handle, done)
+        if pending is not None:
+            action, raw_rew = engine.read_packed(pending[0])
+            self._log_rewards(raw_rew, pending[1])
         return action
 
-    def update(self, engine):
+    def update(self, engine, perms: Optional[torch.Tensor] = None):
         """GAE, then one PPO update on the engine's buffers; returns the
-        metrics as floats."""
+        metrics as floats. `perms`, if given, replaces PPO.draw_perms."""
         cfg = self.config
         engine.compute_returns(cfg.ppoUseGAE, cfg.RLGamma, cfg.ppoGAELambda,
                                cfg.RLUseProperTimeLimits)
         with self.timer.phase("ppo_update"):
             batch = engine.device_batch()
-            self.state, metrics = self.ppo.update(
-                self.state, batch, self.ppo.draw_perms(batch, self.generator))
+            if perms is None:
+                perms = self.ppo.draw_perms(batch, self.generator)
+            self.state, metrics = self.ppo.update(self.state, batch, perms)
             # the update's one read: it waits for the device, so the phase
             # times the update's device work too
             values = torch.stack(list(metrics.values())).tolist()
@@ -227,8 +259,6 @@ class RLTrainer:
             return self._train_device_sim(total_steps, log_interval)
         if not getattr(cfg, "fusedRollout", False):
             return self._train_wrapped(total_steps, log_interval)
-        if getattr(cfg, "RLPipelinedRollout", False):
-            raise _not_ported("RLPipelinedRollout", "RLPipelinedRollout")
         return self._train_fused(total_steps, log_interval)
 
     def setup_device_sim(self):
@@ -348,6 +378,12 @@ class RLTrainer:
 
         envs, engine, action = self.setup_fused()
         T, N = engine.T, engine.N
+        pipelined = bool(getattr(cfg, "RLPipelinedRollout", False))
+        if pipelined:
+            warnings.warn(
+                "RLPipelinedRollout=True trains under a one-step action "
+                "delay the policy cannot observe; use the exact default "
+                "for final policy training (see ROADMAP.md).")
         # labels continue from the restored update counter, so a fine-tune
         # run never leaves its base's higher-numbered checkpoint as latest
         j0 = self.state.step
@@ -360,7 +396,7 @@ class RLTrainer:
         self.update_stats = []
         for j in range(num_updates):
             t0 = time.perf_counter()
-            action = self.rollout(envs, engine, action)
+            action = self.rollout(envs, engine, action, pipelined)
             m = self.update(engine)
             self.update_stats.append((T * N, time.perf_counter() - t0))
 
