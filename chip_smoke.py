@@ -6,7 +6,9 @@
 Phases; any failure exits non-zero and no phase is skipped:
 1. card: CUDA must be present; prints the precision flags;
 2. build: compiles every kernel of the pretext path from var_tpu_torch/csrc
-   with nvcc (sm_90a) and prints the build time;
+   with nvcc (sm_90a), and the host libraries (csrc/simcore.cpp, the grid
+   sim's raycast; csrc/shmbuf.cpp, ShmemVecEnv's shared memory) with g++,
+   all started together, and prints the build times;
 3. each kernel against its plain PyTorch version on the card, at the arm
    path's shape (128, 101, 257), the ai2thor path's (128, 601, 257), the
    pos + neg batch (256, 601, 257), a short last unit (8, 601, 257) and
@@ -138,8 +140,36 @@ audioBackend='pallas'):
    losses, no kernel launch; env-steps/s beside phase 7's exact-protocol
    rate, the p50 of fused_step and env_step.
 
-It then prints the card's name and power limit as nvidia-smi gives them,
-one JSON line with the kernels' numbers, and, last, one JSON line
+Phases 1-28 run their vec envs in-process (vecEnvBackend='dummy'), so
+their numbers compare with earlier runs'. Phases 29-32 run the host env
+layer the JAX package runs by default:
+29. the native raycast (csrc/simcore.cpp) against the numpy one at 300
+   seeded grid states: frames and pixels that differ, the largest
+   difference, within tests/test_native.py's bound (0.5% of a frame's
+   pixels); ms per frame of each; rotate_crop at 0 and 90 degrees against
+   scipy; the host's CPU model and count;
+30. ShmemVecEnv (forkserver workers) against DummyVecEnv at 8 envs, both
+   profiles' RL sims, both transports ('posix', 'array'), 2 full episodes
+   of seeded actions: observations, rewards, dones and obs_list equal; the
+   env_step p50 of each; no segment left in /dev/shm after close; no
+   worker with a CUDA context;
+31. the main path at the JAX package's defaults, no vecEnvBackend
+   override, each profile: pretext collection at pretextNumEnvs (4)
+   through ShmemVecEnv, 2 VAR epochs at batch 128 through the kernel (2
+   launches a step at (128, 101, 257) or (128, 601, 257), held against
+   its plain version on the path's first input), 2 fused PPO updates at 8
+   envs (x 100 or x 50 steps) and a 16-episode eval, each through
+   ShmemVecEnv; env-steps/s, fused_step and env_step p50 beside phases 7
+   and 16's DummyVecEnv numbers;
+32. the grid's fused host path at 64 envs x 50 steps, 2 PPO updates:
+   env-steps/s, the peak summed resident and private resident memory of
+   the worker processes, the host's available memory.
+
+It then stops the processes it started (the forkserver and the resource
+tracker are stopped and waited for; a worker left running fails the run;
+this runs on failure too), prints the card's name and power limit as
+nvidia-smi gives them, one JSON line with the kernels' numbers, and, last,
+one JSON line
 {"ok": true, "device": {...}}. Scratch output goes to build/chip_smoke/.
 """
 from __future__ import annotations
@@ -150,6 +180,7 @@ import functools
 import gc
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -557,6 +588,7 @@ RL_UPDATES = 3  # device-sim updates of either profile
 # mel_log_dct launches on each path, each counted from 0 just before it
 LAUNCHES = {}
 RATES = {}  # phase 4's triplets/s and phase 7's env-steps/s, for 25 and 28
+P50 = {}  # phases 7 and 16's fused_step and env_step p50 ms, for 31
 
 
 def _width(cfg):
@@ -630,6 +662,7 @@ def rl_train(torch, np, mld, env="arms"):
     rates = [n / t for n, t in trainer.update_stats[1:]]
     RATES[env + " rl"] = statistics.median(rates)
     timer = trainer.timer
+    P50[env + " rl"] = (timer.p50_ms("fused_step"), timer.p50_ms("env_step"))
     print(f"rl train: env-steps/s over updates 1-{len(rates)}: median "
           f"{statistics.median(rates):.1f} (min {min(rates):.1f}, max "
           f"{max(rates):.1f}); update seconds "
@@ -640,31 +673,32 @@ def rl_train(torch, np, mld, env="arms"):
     return trainer
 
 
-def rl_eval(torch, trainer, mld, env="arms"):
-    """Phases 8 and 16: deterministic evaluation of the last checkpoint,
-    16 episodes: the arm on 8 envs; the grid on 4 envs, one episode per
-    class each (4 per class)."""
+def rl_eval(torch, trainer, mld, env="arms", tag=""):
+    """Phases 8 and 16 (and 31, `tag` 'defaults '): deterministic
+    evaluation of the trainer's last checkpoint, 16 episodes: the arm on 8
+    envs; the grid on 4 envs, one episode per class each (4 per class)."""
     from var_tpu_torch.train.rl import RLTrainer
 
-    prof, rl_dir = PROFILES[env], RUN_DIR / env / "rl_model"
+    prof = PROFILES[env]
     cfg = copy.deepcopy(trainer.config)
+    rl_dir = Path(cfg.RLModelSaveDir)
     cfg.override(RLTrain=False)
     if prof["eval_per_class"]:
         cfg.override(testEpisodesPerClass=prof["eval_per_class"])
     evaluator = RLTrainer(cfg, device="cuda")
     evaluator.load_pretext()
-    path = rl_dir / f"{prof['rl_updates'] - 1:05d}"
+    path = rl_dir / f"{len(trainer.update_stats) - 1:05d}"
     n_envs, n_episodes = prof["eval_envs"], 16
     mld.mel_log_dct.launches = 0
     t0 = time.perf_counter()
     rate = evaluator.testRL(num_episodes=n_episodes, policy_path=str(path),
                             num_envs=n_envs)
     wall = time.perf_counter() - t0
-    LAUNCHES[prof["key"] + "rl eval"] = mld.mel_log_dct.launches
+    LAUNCHES[prof["key"] + tag + "rl eval"] = mld.mel_log_dct.launches
     with open(rl_dir / f"test_{path.name}.csv") as f:
         rows = list(csv.DictReader(f))
     steps = -(-n_episodes // n_envs) * cfg.RLEnvMaxSteps * n_envs
-    print(f"rl eval [{env}]: {len(rows)} episodes, per class "
+    print(f"rl eval [{tag}{env}]: {len(rows)} episodes, per class "
           f"{[sum(r['objIdx'] == str(c) for r in rows) for c in range(cfg.taskNum)]}, "
           f"success rate {rate}, "
           f"{steps} env steps in {wall:.3f} s = {steps / wall:.1f} "
@@ -1575,6 +1609,379 @@ def slice7_phases(torch, np, mld, kernel, bw, flops):
     gc.collect()
     torch.cuda.empty_cache()
 
+# -- phases 29-32: the host env layer at the JAX package's defaults ----------
+
+NATIVE_STATES = 300
+NUMPY_PIXEL_BOUND = 0.005  # tests/test_native.py:40: boundary float ties
+BUILDS = {}  # phase 2's build seconds by source, for 29
+
+
+def cpu_line() -> str:
+    model = "model not in /proc/cpuinfo"
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if line.startswith("model name"):
+                model = line.split(":", 1)[1].strip()
+                break
+    return f"{model}; os.cpu_count() {os.cpu_count()}"
+
+
+def native_phase(np):
+    """Phase 29: the native raycast against the numpy one at 300 seeded
+    grid states, ms per frame of each, rotate_crop at 0 and 90 degrees."""
+    import ctypes
+
+    from scipy import ndimage
+
+    from var_tpu_torch import native
+    from var_tpu_torch.config import main_config
+    from var_tpu_torch.envs.grid_sim import GridHouseSim
+
+    print(f"native: host CPU {cpu_line()}; built simcore.cpp in "
+          f"{BUILDS['simcore']:.2f} s, shmbuf.cpp in {BUILDS['shmbuf']:.2f} s "
+          f"(phase 2)", flush=True)
+    lib = native.simcore()
+    if lib is None:
+        fail("VAR_TPU_NO_NATIVE is set: the native render is off")
+    host = GridHouseSim(main_config(env="ai2thor"))
+    host.seed(0)
+    plans = list(host.config.allScene["livingRoom"])
+    frames, pixels, worst, biggest = 0, 0, 0.0, 0
+    t_native = t_numpy = 0.0
+    for _ in range(NATIVE_STATES):
+        host.floor_plan = plans[int(host.np_random.randint(len(plans)))]
+        host._build_world()
+        host._domain_randomization()
+        t0 = time.perf_counter()
+        nat = host._render_native(lib)
+        t1 = time.perf_counter()
+        ref = host._render_numpy()
+        t_numpy += time.perf_counter() - t1
+        t_native += t1 - t0
+        differ = np.any(nat != ref, axis=-1)
+        frames += bool(differ.any())
+        pixels += int(differ.sum())
+        worst = max(worst, float(differ.mean()))
+        biggest = max(biggest, int(np.abs(nat.astype(np.int16)
+                                          - ref.astype(np.int16)).max()))
+    print(f"native: {NATIVE_STATES} seeded grid states: {frames} frames and "
+          f"{pixels} pixels differ between native and numpy, the worst frame "
+          f"{100 * worst:.3f}% of its pixels (bound "
+          f"{100 * NUMPY_PIXEL_BOUND}%), largest value difference {biggest}; "
+          f"ms per frame: native {1e3 * t_native / NATIVE_STATES:.4f}, numpy "
+          f"{1e3 * t_numpy / NATIVE_STATES:.4f}", flush=True)
+    if worst >= NUMPY_PIXEL_BOUND:
+        fail("the native render is outside its bound of the numpy one")
+    rng = np.random.RandomState(0)
+    window = ((rng.rand(9, 9) > 0.5) * 255).astype(np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+
+    def rotate(angle):
+        out = np.empty_like(window)
+        lib.rotate_crop(window.ctypes.data_as(u8p), 9, ctypes.c_float(angle),
+                        out.ctypes.data_as(u8p))
+        return out
+
+    ok = (np.array_equal(rotate(0.0), window) and np.array_equal(
+        rotate(90.0), ndimage.rotate(window, 90.0, reshape=False, order=0)))
+    print(f"native: rotate_crop at 0 and 90 degrees as scipy: {ok}",
+          flush=True)
+    if not ok:
+        fail("rotate_crop disagrees with scipy")
+
+
+def _segments():
+    from var_tpu_torch.envs.vec.shm_transport import SEGMENT_PREFIX
+
+    return sorted(n for n in os.listdir("/dev/shm")
+                  if n.startswith(SEGMENT_PREFIX.lstrip("/")))
+
+
+def shmem_phase(np):
+    """Phase 30: ShmemVecEnv (forkserver) against DummyVecEnv at 8 envs,
+    both profiles, both transports, 2 full episodes of seeded actions."""
+    from var_tpu_torch.config import gym_register, main_config
+    from var_tpu_torch.data.audio_store import AudioStore
+    from var_tpu_torch.envs.vec.dummy import DummyVecEnv
+    from var_tpu_torch.envs.vec.factory import EnvThunk
+    from var_tpu_torch.envs.vec.shmem import ShmemVecEnv
+
+    n = 8
+    for env in ("arms", "ai2thor"):
+        cfg = main_config(env=env)
+        cfg.override(RLTrain=True)
+        gym_register(cfg, env=env)
+        audio = AudioStore(cfg)
+        audio.loadData()
+        T = cfg.RLEnvMaxSteps
+        rng = np.random.RandomState(0)
+        if env == "arms":
+            actions = rng.uniform(-1, 1, (2 * T, n, 2)).astype(np.float32)
+        else:
+            actions = rng.randint(0, len(cfg.allActions), (2 * T, n))
+        for transport in ("posix", "array"):
+            thunks = [EnvThunk(cfg.RLEnvName, cfg.RLEnvSeed, i)
+                      for i in range(n)]
+            t0 = time.perf_counter()
+            shmem = ShmemVecEnv(thunks, audio=audio, transport=transport)
+            dummy = DummyVecEnv(thunks, audio=audio)
+            obs = [shmem.reset(), dummy.reset()]
+            start = time.perf_counter() - t0
+            times, equal, dones = ([], []), True, 0
+            for a in actions:
+                outs = []
+                for k, venv in enumerate((shmem, dummy)):
+                    t0 = time.perf_counter()
+                    outs.append(venv.step(a))
+                    times[k].append(time.perf_counter() - t0)
+                (os_, rs, ds, _), (od, rd, dd, _) = outs
+                equal &= (all(np.array_equal(os_[k], od[k]) for k in od)
+                          and np.array_equal(rs, rd)
+                          and np.array_equal(ds, dd)
+                          and all(np.array_equal(
+                              np.asarray(g[k]).reshape(np.shape(w[k])), w[k])
+                              for g, w in zip(shmem.obs_list, dummy.obs_list)
+                              for k in w))
+                dones += int(dd.sum())
+            info = shmem.worker_info()
+            shmem.close()
+            dummy.close()
+            left = _segments()
+            p50 = [1e3 * statistics.median(t) for t in times]
+            print(f"shmem [{env}, {transport}]: {n} envs x {2 * T} steps "
+                  f"(2 episodes, {dones} dones): observations, rewards, "
+                  f"dones and obs_list equal to DummyVecEnv's: {equal}; "
+                  f"env_step p50 ms: shmem {p50[0]:.4f}, dummy {p50[1]:.4f}; "
+                  f"start and reset {start:.2f} s; workers with a CUDA "
+                  f"context {sum(w['cuda_initialized'] for w in info)}, "
+                  f"threads {sorted({w['threads'] for w in info})}; "
+                  f"segments left in /dev/shm {left}", flush=True)
+            if not equal or dones < 2 * n or left \
+                    or any(w["cuda_initialized"] for w in info):
+                fail(f"ShmemVecEnv [{env}, {transport}] is not DummyVecEnv")
+
+
+class _Backends:
+    """Records the vec env each make_vec_envs call of the pretext and RL
+    trainers returns (the class and its env count)."""
+
+    def __enter__(self):
+        from var_tpu_torch.envs.vec import factory
+        from var_tpu_torch.train import rl
+
+        self.made, self._mods = [], (factory, rl)
+        make = self._make = factory.make_vec_envs
+
+        def spy(*a, **kw):
+            envs = make(*a, **kw)
+            self.made.append((type(envs.unwrapped).__name__, envs.num_envs))
+            return envs
+
+        for mod in self._mods:
+            mod.make_vec_envs = spy
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self._mods:
+            mod.make_vec_envs = self._make
+
+
+def defaults_phase(torch, np, mld, kernel, env):
+    """Phase 31: the main path at the JAX package's defaults (no
+    vecEnvBackend override): collect at pretextNumEnvs through ShmemVecEnv,
+    2 VAR epochs through the kernel, 2 fused PPO updates, a 16-episode
+    eval."""
+    from var_tpu_torch.ops import audio
+    from var_tpu_torch.pretext import main as pretext_main
+    from var_tpu_torch.rl import main as rl_main
+
+    prof, run = PROFILES[env], RUN_DIR / "defaults" / env
+    key = prof["key"] + "defaults "
+    seen = {}
+    undo = _capture_stft(audio, seen)
+    mld.mel_log_dct.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with _Backends() as made:
+            trainer = pretext_main([
+                "--env", env, "--set", f'pretextDataDir=["{run / "data"}"]',
+                f'pretextModelSaveDir="{run / "model"}"',
+                'audioBackend="pallas"', "pretextModelFineTune=False",
+                'pretextDataset="VARDataset"',
+                "pretextCollectNum=[128,128,128,128,256]", "pretextEpoch=2",
+                "pretextModelSaveInterval=2"])
+            torch.cuda.synchronize()
+    finally:
+        undo()
+    wall = time.perf_counter() - t0
+    launches = LAUNCHES[key + "pretext"] = mld.mel_log_dct.launches
+    cfg = trainer.config
+    shapes = sorted(set(seen["shapes"]))
+    want_shape = (128, prof["sound"][1] + 1, 257)
+    print(f"defaults [{env}]: pretext vec envs {made.made} "
+          f"(pretextNumEnvs {cfg.pretextNumEnvs}, vecEnvBackend "
+          f"{cfg.vecEnvBackend!r}, vecEnvContext {cfg.vecEnvContext!r}); "
+          f"{trainer.step} steps, mel_log_dct launches {launches} at "
+          f"{shapes}; wall {wall:.2f} s", flush=True)
+    if made.made != [("ShmemVecEnv", cfg.pretextNumEnvs)] \
+            or cfg.vecEnvBackend != "auto" or trainer.step != 12 \
+            or launches != 2 * trainer.step or shapes != [want_shape]:
+        fail(f"the {env} pretext at the defaults did not run through "
+             f"ShmemVecEnv and the kernel")
+    power, params = seen[257]
+    with torch.no_grad():
+        got = mld.mel_log_dct(power, params)
+        want = mld.mel_log_dct_reference(power, params)
+    err = (got - want).abs().max().item()
+    print(f"defaults [{env}]: the kernel on the path's first input "
+          f"{tuple(power.shape)}: max abs err {err:.3e}", flush=True)
+    if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+        fail("the kernel disagrees with its plain version at the defaults")
+    kernel["max_abs_err"] = max(kernel["max_abs_err"], err)
+
+    steps, rl_dir = prof["steps"], run / "rl_model"
+    mld.mel_log_dct.launches = 0
+    with _Backends() as made:
+        rl_trainer = rl_main([
+            "--env", env, "--set",
+            f'pretextModelLoadDir="{run / "model" / "1"}"',
+            f'RLModelSaveDir="{rl_dir}"', "RLTrain=True",
+            "RLModelFineTune=False", f"RLTotalSteps={2 * 8 * steps}",
+            "RLModelSaveInterval=1", "RLLogInterval=1"])
+        torch.cuda.synchronize()
+    launches = LAUNCHES[key + "rl train"] = mld.mel_log_dct.launches
+    rcfg, timer = rl_trainer.config, rl_trainer.timer
+    rate = rl_trainer.update_stats[1][0] / rl_trainer.update_stats[1][1]
+    fused, env_step = timer.p50_ms("fused_step"), timer.p50_ms("env_step")
+    d_fused, d_env = P50[env + " rl"]
+    print(f"defaults [{env}]: rl vec envs {made.made}; "
+          f"{len(rl_trainer.update_stats)} PPO updates at {_width(rcfg)}; "
+          f"env-steps/s at update 1 {rate:.1f} against phase "
+          f"{7 if env == 'arms' else 16}'s DummyVecEnv median "
+          f"{RATES[env + ' rl']:.1f}; p50 ms: fused_step {fused:.4f} "
+          f"(dummy {d_fused:.4f}), env_step {env_step:.4f} (dummy "
+          f"{d_env:.4f}), ppo_update {timer.p50_ms('ppo_update'):.4f}; "
+          f"mel_log_dct launches {launches}", flush=True)
+    if made.made != [("ShmemVecEnv", 8)] or launches != 0 \
+            or len(rl_trainer.update_stats) != 2 \
+            or _width(rcfg)[:2] != (8, steps):
+        fail(f"the {env} RL at the defaults did not run through ShmemVecEnv")
+    with _Backends() as made:
+        rl_eval(torch, rl_trainer, mld, env, tag="defaults ")
+    print(f"defaults [{env}]: eval vec envs {made.made}", flush=True)
+    if made.made != [("ShmemVecEnv", prof["eval_envs"])]:
+        fail(f"the {env} eval at the defaults did not run through "
+             f"ShmemVecEnv")
+
+
+def _descendants():
+    """The pids of this process's live descendants (the forkserver, the
+    resource tracker and the env workers), from /proc; zombies, which have
+    ended and wait only to be reaped, are left out."""
+    children = {}
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            except (OSError, ValueError):
+                continue
+            if state != "Z":
+                children.setdefault(int(ppid), []).append(int(d))
+    out, todo = [], [os.getpid()]
+    while todo:
+        kids = children.get(todo.pop(), [])
+        out += kids
+        todo += kids
+    return out
+
+
+def _memory_kib(pid):
+    """(resident, private resident) KiB of a process from /proc/<pid>/statm
+    (resident less its shared pages), or None once it has gone."""
+    try:
+        with open(f"/proc/{pid}/statm") as f:
+            resident, shared = map(int, f.read().split()[1:3])
+    except (OSError, ValueError):
+        return None
+    kib = os.sysconf("SC_PAGE_SIZE") // 1024
+    return resident * kib, (resident - shared) * kib
+
+
+def _available_gib():
+    with open("/proc/meminfo") as f:
+        return next(int(l.split()[1]) for l in f
+                    if l.startswith("MemAvailable")) / 2 ** 20
+
+
+def grid64_phase(torch):
+    """Phase 32: the grid fused host path at 64 envs x 50 steps, 2 PPO
+    updates; the workers' summed memory and the host's, sampled every
+    0.5 s while it runs."""
+    import threading
+
+    from var_tpu_torch.rl import main as rl_main
+
+    rl_dir, peak, stop = RUN_DIR / "grid64", {}, threading.Event()
+    avail0 = _available_gib()
+
+    def sample():
+        while not stop.wait(0.5):
+            mems = [m for m in map(_memory_kib, _descendants()) if m]
+            for name, v in (("procs", len(mems)),
+                            ("rss", sum(m[0] for m in mems)),
+                            ("private", sum(m[1] for m in mems))):
+                peak[name] = max(peak.get(name, 0), v)
+            peak["avail"] = min(peak.get("avail", avail0), _available_gib())
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    t0 = time.perf_counter()
+    try:
+        with _Backends() as made:
+            trainer = rl_main([
+                "--env", "ai2thor", "--set",
+                f'pretextModelLoadDir="{RUN_DIR / "ai2thor" / "model" / "4"}"',
+                f'RLModelSaveDir="{rl_dir}"', "RLTrain=True",
+                "RLModelFineTune=False", "RLNumEnvs=64",
+                f"RLTotalSteps={2 * 64 * 50}", "RLModelSaveInterval=1",
+                "RLLogInterval=1"])
+            torch.cuda.synchronize()
+    finally:
+        stop.set()
+        sampler.join()
+    wall = time.perf_counter() - t0
+    cfg, timer = trainer.config, trainer.timer
+    rates = [n / t for n, t in trainer.update_stats]
+    print(f"grid 64 envs: vec envs {made.made}; {len(rates)} PPO updates at "
+          f"{_width(cfg)}; env-steps/s {[round(r, 1) for r in rates]} "
+          f"(phase 16's 8-env DummyVecEnv median "
+          f"{RATES['ai2thor rl']:.1f}); p50 ms: fused_step "
+          f"{timer.p50_ms('fused_step'):.4f}, env_step "
+          f"{timer.p50_ms('env_step'):.4f}, ppo_update "
+          f"{timer.p50_ms('ppo_update'):.4f}; wall {wall:.2f} s; host "
+          f"{cpu_line()}", flush=True)
+    print(f"grid 64 envs: peak over {peak.get('procs', 0)} child processes: "
+          f"summed RSS {peak.get('rss', 0) / 2 ** 20:.2f} GiB, summed "
+          f"private RSS {peak.get('private', 0) / 2 ** 20:.2f} GiB; host "
+          f"MemAvailable "
+          f"{avail0:.1f} GiB before, {peak.get('avail', avail0):.1f} GiB at "
+          f"the least", flush=True)
+    if made.made != [("ShmemVecEnv", 64)] or len(rates) != 2 \
+            or _width(cfg)[:2] != (64, 50) or peak.get("procs", 0) < 64:
+        fail("the grid's 64-env host path did not run through 64 workers")
+
+
+def slice8_phases(torch, np, mld, kernel):
+    """Phases 29-32."""
+    native_phase(np)
+    shmem_phase(np)
+    for env in ("arms", "ai2thor"):
+        defaults_phase(torch, np, mld, kernel, env)
+    grid64_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
 
 def main():
     import torch
@@ -1592,9 +1999,25 @@ def main():
     name = torch.cuda.get_device_name(0)
     print(f"card: {name}; precision {precision_flags()}", flush=True)
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from var_tpu_torch import native
+
+    def timed(build, *args):
+        t0 = time.perf_counter()
+        build(*args, force=True)
+        return time.perf_counter() - t0
+
+    # the kernel (nvcc) and the host libraries (g++), all started together
     t0 = time.perf_counter()
-    mld.build(force=True)
-    print(f"build: mel_log_dct.cu in {time.perf_counter() - t0:.2f} s",
+    with ThreadPoolExecutor(3) as pool:
+        jobs = {"mel_log_dct": pool.submit(timed, mld.build),
+                **{name: pool.submit(timed, native.build, name)
+                   for name in ("simcore", "shmbuf")}}
+        BUILDS.update({k: j.result() for k, j in jobs.items()})
+    print(f"build: mel_log_dct.cu in {BUILDS['mel_log_dct']:.2f} s, "
+          f"simcore.cpp in {BUILDS['simcore']:.2f} s, shmbuf.cpp in "
+          f"{BUILDS['shmbuf']:.2f} s, {time.perf_counter() - t0:.2f} s in all",
           flush=True)
 
     bw, flops = peaks(line)
@@ -1611,7 +2034,11 @@ def main():
     t0 = time.perf_counter()
     slice7_phases(torch, np, mld, kernel, bw, flops)
     print(f"phases 24-28 in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    slice8_phases(torch, np, mld, kernel)
+    print(f"phases 29-32 in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    stop_children()  # before the result: nothing outlives the script
     kernel["launches_by_path"] = dict(LAUNCHES)
     print(line)
     print(json.dumps({"kernels": [kernel]}))
@@ -1620,5 +2047,39 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def stop_children():
+    """Stop every process the script started, before it exits, pass or
+    fail. The paths close the env workers they start; what stays is the
+    multiprocessing forkserver and resource tracker, which would outlive the
+    script until each saw its end: both are stopped and waited for here.
+    Any other live descendant is a worker that was not closed: it is killed,
+    and the run fails."""
+    import signal
+    from multiprocessing import forkserver, resource_tracker
+
+    servers = {forkserver._forkserver._forkserver_pid,
+               resource_tracker._resource_tracker._pid}
+    leaked = [pid for pid in _descendants() if pid not in servers]
+    for pid in leaked:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    forkserver._forkserver._stop()  # closes its pipe, waits for its exit
+    for pid in leaked:
+        try:
+            os.waitpid(pid, 0)
+        except ChildProcessError:  # the forkserver's child, reaped there
+            pass
+    resource_tracker._resource_tracker._stop()
+    left = _descendants()
+    if leaked or left:
+        fail(f"processes still running at the end: {leaked} killed, "
+             f"{left} left")
+
+
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        stop_children()

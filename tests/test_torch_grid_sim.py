@@ -76,12 +76,16 @@ def _t(a):
 
 @pytest.fixture
 def jax_numpy_render(monkeypatch):
-    """The JAX package's host sim renders through its native library where
-    one is built, which differs from its numpy raycast at a few pixels
-    (tests/test_native.py allows 0.5%); the port's sim is the numpy
-    raycast, so the JAX sim is held to that path here."""
+    """Both packages' host sims on their numpy raycast: the JAX sim's
+    get_image patched to its `_render_numpy`, the port's through
+    VAR_TPU_NO_NATIVE. By default both render natively (byte for byte the
+    same library, tests/test_torch_native.py), so the tests without this
+    fixture hold the default paths to each other; the tests with it hold
+    the port's plain render to JAX's on purpose, because the device sims
+    copy that render (envs/grid_sim_device.py) and a user may ask for it."""
     monkeypatch.setattr(jgrid.GridHouseSim, "get_image",
                         jgrid.GridHouseSim._render_numpy)
+    monkeypatch.setenv("VAR_TPU_NO_NATIVE", "1")
 
 
 def _assert_obs_equal(got, want):
@@ -94,9 +98,19 @@ def _assert_obs_equal(got, want):
 
 
 @pytest.mark.parametrize("train", [True, False])
-def test_host_rl_sim_matches_jax(train, jax_numpy_render):
-    """Seeded episodes with every action: observations byte-identical,
-    rewards, dones and the eval's goal_area_count equal."""
+def test_host_rl_sim_matches_jax(train):
+    """Seeded episodes with every action, both sims on their default
+    (native) render: observations byte-identical, rewards, dones and the
+    eval's goal_area_count equal."""
+    _rl_episodes_match(train)
+
+
+def test_host_rl_sim_numpy_render_matches_jax(jax_numpy_render):
+    """The same on both packages' numpy raycast."""
+    _rl_episodes_match(True)
+
+
+def _rl_episodes_match(train):
     jcfg, tcfg = _configs(RLTrain=train)
     jenv, tenv = jgrid.GridHouseSim(jcfg), tgrid.GridHouseSim(tcfg)
     for env in (jenv, tenv):
@@ -114,7 +128,7 @@ def test_host_rl_sim_matches_jax(train, jax_numpy_render):
     assert jenv.episodeCounter == tenv.episodeCounter == 3
 
 
-def test_host_pretext_sim_matches_jax(jax_numpy_render):
+def test_host_pretext_sim_matches_jax():
     jcfg, tcfg = _configs(pretextEnvMaxSteps=5)
     jenv = jgrid.GridHousePretextSim(jcfg)
     tenv = tgrid.GridHousePretextSim(tcfg)
@@ -131,8 +145,9 @@ def test_host_pretext_sim_matches_jax(jax_numpy_render):
     assert len(set(labels)) >= 3  # objects in view, and the empty class
 
 
-def test_pretext_collection_matches_jax(tmp_path, jax_numpy_render):
-    """Both packages' collectors from one seed write identical shards."""
+def test_pretext_collection_matches_jax(tmp_path):
+    """Both packages' collectors from one seed write identical shards (on
+    DummyVecEnv; tests/test_torch_shmem.py collects at the defaults)."""
     from var_tpu.train import pretext as jpretext
     from var_tpu_torch.data.triplets import load_shard
     from var_tpu_torch.train import pretext as tpretext
@@ -216,7 +231,9 @@ def _jsplit(states):
 
 def test_render_visibility_and_occupancy_match_host_and_jax(banks):
     """300 seeded states: the port's render, occupancy crop and visibility
-    equal the host sim's at every one; JAX's where JAX equals the host."""
+    equal the host sim's at every one (the render against its plain
+    `_render_numpy`, which the device sim copies); JAX's where JAX equals
+    the host."""
     jcfg, tcfg, jbank, tbank = banks
     states, host = _states(tcfg, 300, 7)
     plan, pos, rot, tog = _split(states)
@@ -231,7 +248,7 @@ def test_render_visibility_and_occupancy_match_host_and_jax(banks):
     jax_exact = 0
     for i, st in enumerate(states):
         _sync(host, tcfg, st)
-        want = np.transpose(host.get_image(), (2, 0, 1))
+        want = np.transpose(host._render_numpy(), (2, 0, 1))
         np.testing.assert_array_equal(img[i], want, err_msg=f"state {i}")
         np.testing.assert_array_equal(occ[i], host.get_local_occupancy_map())
         host_vis = [o in host.visible_objects() for o in tdev.OBJ_NAMES]

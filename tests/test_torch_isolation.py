@@ -1,6 +1,7 @@
 """The port stands alone: var_tpu_torch and chip_smoke.py import neither
-JAX (nor flax, optax, orbax) nor anything of var_tpu, and no pandas, which
-the GPU machine does not have."""
+JAX (nor flax, optax, orbax) nor anything of var_tpu, and no pandas,
+cloudpickle, cv2 or matplotlib, which the GPU machine does not have; the
+port loads its own native libraries, never the JAX package's."""
 import ast
 import os
 import re
@@ -12,7 +13,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "var_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas",
+             "cloudpickle", "cv2", "matplotlib")
 VAR_TPU = re.compile(r"\bvar_tpu\b(?!_torch)")
 
 
@@ -100,3 +102,46 @@ def test_e2e_recipe_modules_are_covered():
                  "train.self_improve", "ops.running_stats", "envs.vec.base",
                  "envs.vec.wrappers", "rl.reward", "rl.storage"):
         assert f"var_tpu_torch.{name}" in modules
+
+
+def test_host_env_layer_modules_are_covered():
+    """The native libraries' loader, the shared-memory vec env, its
+    forkserver preload module and FakeArmEnv are among those checked
+    here."""
+    modules = set(_modules())
+    for name in ("native", "envs.vec.shmem", "envs.vec.shm_transport",
+                 "envs.vec.worker_preload", "envs.vec.factory", "envs.fake"):
+        assert f"var_tpu_torch.{name}" in modules
+
+
+def test_native_libraries_are_the_ports_own():
+    """Built from var_tpu_torch/csrc into build/native/, never the JAX
+    package's native/*.so."""
+    from var_tpu_torch import native
+
+    assert native.CSRC == PORT / "csrc"
+    assert native.BUILD_DIR == ROOT / "build" / "native"
+    for lib in (native.simcore(), native.shmbuf()):
+        path = Path(lib._name).resolve()
+        assert path.parent == ROOT / "build" / "native", path
+    for path in _port_files():
+        assert "libsimcore.so" not in path.read_text() or \
+            path.name == "native.py", path
+
+
+def test_worker_preload_creates_no_cuda_state():
+    """The forkserver imports the preload once and forks every worker from
+    it: it must not import device.py nor touch CUDA."""
+    code = "\n".join([
+        "import sys",
+        "import var_tpu_torch.envs.vec.worker_preload",
+        "import torch",
+        "assert 'var_tpu_torch.device' not in sys.modules",
+        "assert not torch.cuda.is_initialized()",
+        "print('ok')",
+    ])
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("ok")

@@ -36,6 +36,7 @@ from var_tpu_torch.device import resolve_device
 from var_tpu_torch.envs import arm_sim as tsim
 from var_tpu_torch.envs.vec.dummy import DummyVecEnv
 from var_tpu_torch.envs.vec.factory import make_vec_envs
+from var_tpu_torch.envs.vec.shmem import ShmemVecEnv
 from var_tpu_torch.models.encoders import VARPretextNet
 from var_tpu_torch.train import pretext as tpretext
 from var_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint
@@ -320,17 +321,28 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
 
 
 def test_vec_env_factory_backends(tmp_path):
+    """As the JAX factory: 'auto' and 'shmem' give ShmemVecEnv at 2 envs,
+    'auto' gives DummyVecEnv at 1, 'dummy' always; an unknown name
+    raises."""
     _, cfg = _configs(tmp_path)
     tconfig.gym_register(cfg)
     audio = tstore.AudioStore(cfg)
-    for backend in ("auto", "dummy"):
+    audio.loadData()
+    cfg.override(vecEnvContext="fork")  # the cheap start; forkserver is
+    # the default, tested in tests/test_torch_shmem.py
+    for backend, n, kind in (("auto", 2, ShmemVecEnv),
+                             ("shmem", 2, ShmemVecEnv),
+                             ("auto", 1, DummyVecEnv),
+                             ("dummy", 2, DummyVecEnv)):
         cfg.override(vecEnvBackend=backend)
-        envs = make_vec_envs(cfg.pretextEnvName, 1, 2, None, True, cfg,
+        envs = make_vec_envs(cfg.pretextEnvName, 1, n, None, True, cfg,
                              audio=audio)
-        assert isinstance(envs, DummyVecEnv) and envs.num_envs == 2
-        envs.close()
+        try:
+            assert type(envs) is kind and envs.num_envs == n
+        finally:
+            envs.close()
     with pytest.raises(ValueError, match="frozen VAR"):
         make_vec_envs(cfg.pretextEnvName, 1, 2, None, False, cfg, audio=audio)
-    cfg.override(vecEnvBackend="shmem")
-    with pytest.raises(NotImplementedError):
+    cfg.override(vecEnvBackend="subproc")
+    with pytest.raises(ValueError, match="unknown vecEnvBackend"):
         make_vec_envs(cfg.pretextEnvName, 1, 2, None, True, cfg, audio=audio)

@@ -64,7 +64,7 @@ def resolve(env_id: str):
     """(entry_point, default_kwargs) for an id. Resolve in the PARENT
     before shipping construction to worker processes: the registry is
     process-local runtime state, so spawn/forkserver children have an
-    empty one (see vec/factory.py::make_env_thunk)."""
+    empty one (see vec/factory.py::EnvThunk)."""
     if env_id not in _REGISTRY:
         raise KeyError(
             f"Unknown env id {env_id!r}. Registered: {sorted(_REGISTRY)}. "

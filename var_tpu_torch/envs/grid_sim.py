@@ -33,11 +33,14 @@ associations.
 
 A copy of var_tpu/envs/grid_sim.py that draws from its numpy RandomState in
 the same order, so both packages collect byte-identical shards and episodes
-from one seed. The first-person frame is the JAX package's numpy raycast
-(`_render_numpy`), which its tests hold bit-identical to its native C++
-renderer; the port does not load that library. Episode-image recording
-and render playback are not ported: the constructor raises where a config
-asks for them.
+from one seed. The first-person frame comes, as in the JAX package, from
+the native raycast (`_render_native`, the port's own copy of the C++
+library, var_tpu_torch/native.py), byte for byte the JAX library's frame.
+`_render_numpy` is its plain version and the device sim's reference: the
+two differ at a few boundary pixels where a float tie falls the other way
+(tests/test_torch_native.py bounds the share). VAR_TPU_NO_NATIVE asks for
+the numpy render. Episode-image recording and render playback are not
+ported: the constructor raises where a config asks for them.
 """
 from __future__ import annotations
 
@@ -273,8 +276,44 @@ class GridHouseSim(Env):
     # -- first-person rendering -----------------------------------------------
 
     def get_image(self) -> np.ndarray:
-        """96x96x3 uint8 raycast view."""
+        """96x96x3 uint8 raycast view: the native renderer, or the numpy
+        one where VAR_TPU_NO_NATIVE is set."""
+        from var_tpu_torch.native import simcore
+
+        lib = simcore()
+        if lib is not None:
+            return self._render_native(lib)
         return self._render_numpy()
+
+    def _render_native(self, lib) -> np.ndarray:
+        import ctypes
+
+        H = W = 96
+        out = np.empty((H, W, 3), dtype=np.uint8)
+        names = list(self.objects.keys())
+        objs = np.zeros((len(names), 4), dtype=np.float32)
+        colors = np.zeros((len(names), 2, 3), dtype=np.float32)
+        for i, name in enumerate(names):
+            o = self.objects[name]
+            objs[i] = (o["cell"][0], o["cell"][1], float(o["isToggled"]), i)
+            colors[i, 0] = OBJ_COLORS[name][0]
+            colors[i, 1] = OBJ_COLORS[name][1]
+        grid = np.ascontiguousarray(self.grid, dtype=np.uint8)
+        wall = np.asarray(WALL_COLOR, np.uint8)
+        floor = np.asarray(FLOOR_COLOR, np.uint8)
+        ceil = np.asarray(CEIL_COLOR, np.uint8)
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        f32p = ctypes.POINTER(ctypes.c_float)
+        lib.raycast_render(
+            grid.ctypes.data_as(u8p), grid.shape[0], grid.shape[1],
+            objs.ctypes.data_as(f32p), len(names),
+            colors.ctypes.data_as(f32p),
+            float(self.pos[0]), float(self.pos[1]), float(self.rot),
+            float(self.config.fieldOfView), H, W,
+            wall.ctypes.data_as(u8p), floor.ctypes.data_as(u8p),
+            ceil.ctypes.data_as(u8p), out.ctypes.data_as(u8p),
+        )
+        return out
 
     def _render_numpy(self) -> np.ndarray:
         H = W = 96

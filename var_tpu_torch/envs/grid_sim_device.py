@@ -9,7 +9,9 @@ a PPO rollout runs on the card with no host round trip per step
 (rl/device_sim.py::GridDeviceSimEngine).
 
 Parity contract (tests/test_torch_grid_sim.py): for the same env state,
-`render` is pixel-identical to GridHouseSim.get_image, `visible_mask`
+`render` is pixel-identical to GridHouseSim._render_numpy (the host's
+plain render; its default get_image is the native raycast, which differs
+from it at a few boundary pixels), `visible_mask`
 equals visible_objects, `local_occupancy` equals get_local_occupancy_map,
 and `exe_action` equals _exe_action. The host works in float64; so do the
 two places here where a float decides a cell:
@@ -256,7 +258,7 @@ def visible_mask(bank: PlanBank, plan, pos, rot_idx, vis_dist: float):
 
 def render_chw(bank: PlanBank, plan, pos, rot_idx, toggled):
     """(N, 3, 96, 96) u8 first-person view, the obs-dict layout:
-    pixel-identical to GridHouseSim.get_image."""
+    pixel-identical to GridHouseSim._render_numpy."""
     N, G = pos.shape[0], bank.grids.shape[1]
     origin = pos.to(torch.float64) + 0.5
     pts = origin[:, None, None, :] + bank.ray_offsets[rot_idx]  # (N,W,S,2)

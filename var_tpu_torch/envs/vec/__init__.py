@@ -1,1 +1,2 @@
-"""Vectorized environments (the in-process dummy env)."""
+"""Vectorized environments: the in-process DummyVecEnv and the
+shared-memory ShmemVecEnv (one worker process per env)."""

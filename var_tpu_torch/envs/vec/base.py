@@ -4,6 +4,8 @@ observations, and the delegating wrappers (reference:
 Envs/vec_env/vec_env.py:31-190)."""
 from __future__ import annotations
 
+import contextlib
+import os
 from abc import ABC, abstractmethod
 from collections import OrderedDict
 
@@ -128,3 +130,29 @@ def stack_obs(obs_list, observation_space) -> "OrderedDict[str, np.ndarray]":
             [np.asarray(o[key]).reshape(space.shape) for o in obs_list]
         ).astype(space.dtype)
     return out
+
+
+# the thread pools a worker process would start; one worker per env, each
+# with a pool as wide as the host, would oversubscribe the host's cores
+THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+
+
+@contextlib.contextmanager
+def worker_environment():
+    """The environment worker processes start in: OMPI_/PMI_ variables
+    stripped, so that a child that imports mpi4py does not MPI_Init itself
+    as a rank and hang (reference: Envs/vec_env/vec_env.py:209-225), and
+    each thread pool set to one thread. A forkserver or spawned child
+    reads these at its start, before numpy or torch loads; the parent's
+    own variables come back on exit."""
+    saved = {k: v for k, v in os.environ.items()
+             if k.startswith(("OMPI_", "PMI_")) or k in THREAD_VARS}
+    for k in saved:
+        del os.environ[k]
+    os.environ.update({k: "1" for k in THREAD_VARS})
+    try:
+        yield
+    finally:
+        for k in THREAD_VARS:
+            del os.environ[k]
+        os.environ.update(saved)

@@ -47,6 +47,10 @@ class DummyVecEnv(VecEnv):
             tuple(infos),
         )
 
+    def get_images(self):
+        """One rgb_array frame per env; the base render() tiles them."""
+        return [env.render("rgb_array") for env in self.envs]
+
     def close_extras(self):
         for env in self.envs:
             env.close()

@@ -24,7 +24,8 @@ gripper poses (arm) or occupancy crops (grid) must then be equal, and the
 success bits and counts; everything else agrees within the tolerances
 below. Both sides then run one PPO.update of the card's batch with the
 same permutations. render_card_against_host holds the card's render
-against the host sim's get_image at seeded states, every pixel.
+against the host sim's plain render at seeded states, every pixel (the
+grid's `_render_numpy`, not its native `get_image`).
 
 wrapped_card_against_cpu (the reward-wrapper path): see its docstring.
 
@@ -277,8 +278,11 @@ def _crnn_err(got, want) -> float:
 
 def render_card_against_host(config, n: int = 1000, seed: int = 0,
                              card: str = "cuda") -> dict:
-    """`render_chw` on the card against the host sim's get_image at `n`
+    """`render_chw` on the card against the host sim's plain render at `n`
     seeded states: the count of states with any pixel that differs. Arm:
+    get_image, the arm's one render. Grid: `_render_numpy`, which the
+    device sim copies (its default get_image is the native raycast, which
+    differs at a few boundary pixels).
     the host sim's own reset, the gripper uniform over the workspace.
     Grid: a seeded floor plan, free cell, heading and object states."""
     if config.name != "ArmConfig":
@@ -330,7 +334,7 @@ def _grid_render_card_against_host(cfg, n: int, seed: int, card: str
         host._domain_randomization()  # teleport, heading, object states
         states.append((k, *host.pos, int(host.rot) // 45,
                        *(host.objects[o]["isToggled"] for o in gsim.OBJ_NAMES)))
-        want.append((np.transpose(host.get_image(), (2, 0, 1)),
+        want.append((np.transpose(host._render_numpy(), (2, 0, 1)),
                      host.get_local_occupancy_map(),
                      [o in host.visible_objects() for o in gsim.OBJ_NAMES]))
     st = torch.tensor(states, dtype=torch.int64, device=card)

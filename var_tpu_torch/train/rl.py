@@ -691,11 +691,16 @@ class RLTrainer:
             raise FileNotFoundError(
                 f"policy checkpoint {path!r} does not exist")
         envs = self._wrapped_envs(N, cfg.RLGamma)
-        base = envs.unwrapped.envs[0].env
         self._build_policy(envs.action_space)
         self.policy.load_state_dict(self.load_policy_params(path))
         print("Load the weights from", path)
-        size_per_class = np.asarray(base.size_per_class)
+        # the per-class quotas: off the base env where it lives in this
+        # process (DummyVecEnv), else derived from the config as the envs
+        # derive them (a ShmemVecEnv's envs live in its workers)
+        unwrapped = envs.unwrapped
+        size_per_class = (
+            np.asarray(unwrapped.envs[0].env.size_per_class)
+            if hasattr(unwrapped, "envs") else _eval_size_per_class(cfg))
         episode_num = int(np.sum(size_per_class)) * N
         if num_episodes is not None:
             episode_num = num_episodes
