@@ -165,6 +165,16 @@ layer the JAX package runs by default:
    env-steps/s, the peak summed resident and private resident memory of
    the worker processes, the host's available memory.
 
+Phase 33 runs what a user drives by hand:
+33. manual control (RLTrainer.manualControl) with render=True and an
+   episode frame recorded every step, each profile on its phase-4 VAR on
+   the card, from a scripted stream (grid keys, arm 'dx dy' lines, a
+   repeat, a refused command, 'quit'): one finite step reward per valid
+   command, every frame a PNG of episodeImgSize read back with zlib, the
+   live view 96x96x3, no mel-log-DCT launch (the goal MFCC is the host's);
+   then run() with RLManualControlLoaded=False (a fresh VAR) reading
+   commands from stdin.
+
 It then stops the processes it started (the forkserver and the resource
 tracker are stopped and waited for; a worker left running fails the run;
 this runs on failure too), prints the card's name and power limit as
@@ -1983,6 +1993,121 @@ def slice8_phases(torch, np, mld, kernel):
     torch.cuda.empty_cache()
 
 
+# -- phase 33: manual control and episode recording ----------------------------
+
+# scripted command streams: keys on the grid, 'dx dy' lines on the arm; ''
+# repeats the last command, an unknown key or bad line is refused
+MANUAL_STREAMS = {"ai2thor": ["w", "a", "", "x", "d", "w", "quit", "w"],
+                  "arms": ["0.5 0", "0 -0.5", "", "left", "-1 1", "quit"]}
+
+
+def _read_png(np, path):
+    """A PNG the port wrote (8-bit grey or RGB, filter 0), read back with
+    zlib after checking its signature and every chunk's CRC."""
+    import struct
+    import zlib
+
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail(f"{path} is not a PNG")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] != \
+                zlib.crc32(kind + body) & 0xFFFFFFFF:
+            fail(f"{path}: bad CRC in its {kind!r} chunk")
+        chunks[kind] = chunks.get(kind, b"") + body
+        pos += 12 + n
+    w, h, _, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    c = 3 if color == 2 else 1
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
+    return rows.reshape(h, 1 + w * c)[:, 1:].reshape(h, w, c)
+
+
+def manual_phase(torch, np, mld):
+    """Phase 33: scripted manual control with render and episode recording
+    on, each profile on its phase-4 VAR on the card, then run()'s dispatch
+    with a fresh VAR; the frames and the live view read back."""
+    import builtins
+    import io
+    import re
+    from contextlib import redirect_stdout
+
+    from var_tpu_torch.config import gym_register, main_config
+    from var_tpu_torch.train.rl import RLTrainer
+
+    def trainer_for(env, run, loaded):
+        cfg = main_config(env=env)
+        cfg.override(RLTrain=False, RLManualControl=True, render=True,
+                     RLManualControlLoaded=loaded, episodeImgSaveInterval=1,
+                     episodeImgSaveDir=str(run), vecEnvBackend="dummy",
+                     pretextModelLoadDir=str(RUN_DIR / env / "model" / "4"))
+        gym_register(cfg, env=env)
+        return RLTrainer(cfg, env=env, device="cuda")
+
+    for env, stream in MANUAL_STREAMS.items():
+        run = RUN_DIR / "manual" / env
+        trainer = trainer_for(env, run, True)
+        trainer.load_pretext()
+        commands = iter(stream)
+        out = io.StringIO()
+        mld.mel_log_dct.launches = 0
+        t0 = time.perf_counter()
+        with redirect_stdout(out):
+            trainer.manualControl(input_fn=lambda: next(commands))
+        wall = time.perf_counter() - t0
+        LAUNCHES[f"{PROFILES[env]['key']}manual control"] = \
+            mld.mel_log_dct.launches
+        rewards = [float(x) for x in
+                   re.findall(r"step reward (\S+)", out.getvalue())]
+        refused = len(re.findall(r"unknown key|expected 'dx dy'",
+                                 out.getvalue()))
+        frames = sorted(p for p in run.iterdir() if p.name != "manual_live.png")
+        h, w, _ = trainer.config.episodeImgSize
+        shapes = {_read_png(np, p).shape for p in frames}
+        live = _read_png(np, run / "manual_live.png")
+        print(f"manual control [{env}]: {len(rewards)} steps, rewards "
+              f"{[round(r, 4) for r in rewards]}, {refused} command refused; "
+              f"{len(frames)} episode frames {sorted(shapes)}, live view "
+              f"{live.shape}; VAR on "
+              f"{next(trainer.pretext_model.parameters()).device}; "
+              f"mel_log_dct launches {mld.mel_log_dct.launches}; "
+              f"{wall:.2f} s", flush=True)
+        valid = len([c for c in stream[:stream.index("quit")]
+                     if c not in ("x", "left")])
+        if len(rewards) != valid or refused != 1 \
+                or not all(math.isfinite(r) for r in rewards) \
+                or len(frames) < valid or shapes != {(h, w, 3)} \
+                or live.shape != (96, 96, 3) or live.std() == 0 \
+                or not next(trainer.pretext_model.parameters()).is_cuda \
+                or mld.mel_log_dct.launches != 0:
+            fail(f"manual control [{env}] did not run as scripted")
+
+    # run() with no VAR to load: a fresh one, commands from stdin
+    run = RUN_DIR / "manual" / "fresh"
+    commands = iter(["w", "d", "w"])
+
+    def scripted_input(prompt=""):
+        try:
+            return next(commands)
+        except StopIteration:
+            raise EOFError from None
+
+    out, saved = io.StringIO(), builtins.input
+    builtins.input = scripted_input
+    try:
+        with redirect_stdout(out):
+            trainer_for("ai2thor", run, False).run()
+    finally:
+        builtins.input = saved
+    rewards = re.findall(r"step reward (\S+)", out.getvalue())
+    print(f"manual control [ai2thor, fresh VAR through run()]: "
+          f"{len(rewards)} steps", flush=True)
+    if len(rewards) != 3 or not (run / "manual_live.png").exists():
+        fail("run() did not dispatch manual control with a fresh VAR")
+
+
 def main():
     import torch
 
@@ -2037,6 +2162,9 @@ def main():
     t0 = time.perf_counter()
     slice8_phases(torch, np, mld, kernel)
     print(f"phases 29-32 in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    manual_phase(torch, np, mld)
+    print(f"phase 33 in {time.perf_counter() - t0:.1f} s", flush=True)
 
     stop_children()  # before the result: nothing outlives the script
     kernel["launches_by_path"] = dict(LAUNCHES)

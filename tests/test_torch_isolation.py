@@ -1,6 +1,6 @@
 """The port stands alone: var_tpu_torch and chip_smoke.py import neither
 JAX (nor flax, optax, orbax) nor anything of var_tpu, and no pandas,
-cloudpickle, cv2 or matplotlib, which the GPU machine does not have; the
+cloudpickle, cv2, PIL or matplotlib, which the GPU machine does not have; the
 port loads its own native libraries, never the JAX package's."""
 import ast
 import os
@@ -14,7 +14,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "var_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas",
-             "cloudpickle", "cv2", "matplotlib")
+             "cloudpickle", "cv2", "PIL", "matplotlib")
 VAR_TPU = re.compile(r"\bvar_tpu\b(?!_torch)")
 
 
@@ -67,6 +67,14 @@ def test_pretext_paths_modules_are_covered():
     for name in ("utils.teleop", "data.triplets", "data.audio_store",
                  "train.pretext", "envs.arm_sim", "envs.grid_sim",
                  "rl.rollout_device", "train.rl", "cli"):
+        assert f"var_tpu_torch.{name}" in modules
+
+
+def test_recording_and_manual_control_modules_are_covered():
+    """Episode-image recording, render playback and manual control are
+    among the modules checked here."""
+    modules = set(_modules())
+    for name in ("envs.recording", "utils.audio_play", "train.rl"):
         assert f"var_tpu_torch.{name}" in modules
 
 

@@ -153,6 +153,57 @@ def test_grid_paths_agree_on_card_and_cpu(monkeypatch):
     assert render_card_against_host(cfg, n=200)["ok"]
 
 
+@pytest.mark.cuda
+def test_grid_var_training_agrees_on_card_and_cpu(tmp_path, monkeypatch):
+    """The grid VAR's first epoch at sound 1x600x40 on the card (the
+    kernel at (B, 601, 257)) and on the CPU (its plain version), from one
+    initial state drawn on the CPU, over one small grid collection: every
+    step's loss at the CRNN's rtol 1e-3 / atol 2e-4 (its convolutions and
+    73-step BiGRU sum in another order on each device), the parameters
+    after the epoch within 2 lr a step + 5e-5 (Adam's bound: a near-zero
+    gradient may round to the other sign)."""
+    from var_tpu_torch.config import gym_register
+    from var_tpu_torch.train.pretext import PretextTrainer
+
+    _require_card("it holds the card against the CPU")
+    monkeypatch.setenv("VAR_TPU_SYNTH_CLIPS", "3")
+    cfg = main_config(env="ai2thor")
+    cfg.override(vecEnvBackend="dummy", audioBackend="pallas",
+                 pretextDataDir=[str(tmp_path / "triplets")],
+                 pretextModelSaveDir=str(tmp_path / "var"),
+                 pretextCollectNum=[2, 2, 4, 4, 8], pretextDataEpisode=200,
+                 pretextDataNumFiles=1, pretextNumEnvs=2, pretextEpoch=1,
+                 pretextTrainBatchSize=4, pretextModelSaveInterval=100,
+                 pretextModelFineTune=False, pretextDataset="VARDataset")
+    gym_register(cfg, env="ai2thor")
+    PretextTrainer(cfg, device="cpu").collectPretextData()
+    losses, params = {}, {}
+    for device in ("cpu", "cuda"):
+        trainer = PretextTrainer(cfg, device=device)
+        trainer.init_model(seed=977)
+        run = trainer._run_epoch_indexed
+        steps = losses[device] = []
+
+        def record(ds, bank, batch_size, epoch, run=run, steps=steps):
+            out, n = run(ds, bank, batch_size, epoch)
+            steps.extend(out)
+            return out, n
+
+        monkeypatch.setattr(trainer, "_run_epoch_indexed", record)
+        before = mld.mel_log_dct.launches
+        trainer.trainRepresentation(log_csv=False)
+        launched = mld.mel_log_dct.launches - before
+        assert (launched > 0) == (device == "cuda")
+        params[device] = {k: v.cpu() for k, v in
+                          trainer.model.state_dict().items()}
+    assert len(losses["cuda"]) == len(losses["cpu"]) == 5
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3,
+                               atol=2e-4)
+    bound = 2 * cfg.pretextLR * 5 + 5e-5
+    for k, v in params["cpu"].items():
+        assert (params["cuda"][k] - v).abs().max().item() <= bound, k
+
+
 def test_build_without_nvcc_raises(monkeypatch):
     if shutil.which("nvcc"):
         pytest.skip("nvcc is present; the build itself is tested on the card")

@@ -350,10 +350,20 @@ def test_entry_point_needs_cuda_or_the_cpu_flag(var_checkpoint):
         rl_main(args)
 
 
-def test_manual_control_raises_naming_its_roadmap_item():
-    _, tcfg = _configs(RLManualControl=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*manual control"):
-        trl.RLTrainer(tcfg, device="cpu").run()
+def test_manual_control_raises_naming_its_roadmap_item(tmp_path, monkeypatch):
+    """Manual control is ported now (tests/test_torch_manual_control.py
+    holds it against JAX): run() no longer raises; it drives the env from
+    stdin until the input ends and writes the live frame. (The name is
+    the one it had while this path raised.)"""
+    _, tcfg = _configs(RLManualControl=True, RLTrain=False,
+                       episodeImgSaveDir=str(tmp_path))
+
+    def no_input(prompt=""):
+        raise EOFError
+
+    monkeypatch.setattr("builtins.input", no_input)
+    trl.RLTrainer(tcfg, device="cpu").run()
+    assert os.listdir(tmp_path) == ["manual_live.png"]
 
 
 def test_card_check_rehearses_on_the_cpu():

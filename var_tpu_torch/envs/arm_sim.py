@@ -28,8 +28,9 @@ by design.
 
 A copy of var_tpu/envs/arm_sim.py that draws from its numpy RandomState in
 the same order, so both packages collect byte-identical shards from one
-seed. Episode-image recording and render playback wait for a later slice;
-the constructor raises where a config asks for them.
+seed. Episode images (episodeImgSaveInterval) are written as PNG by
+envs/recording.py; with render=True the goal command plays at the first
+step (utils/audio_play.py) and every step draws its current sound.
 """
 from __future__ import annotations
 
@@ -41,6 +42,8 @@ import numpy as np
 from var_tpu_torch.data.audio_store import AudioStore
 from var_tpu_torch.envs import spaces
 from var_tpu_torch.envs.core import Env
+from var_tpu_torch.envs.recording import save_episode_image
+from var_tpu_torch.utils.audio_play import play_clip
 
 # "key" object footprint used for the ray test (the reference ray-casts from
 # the gripper straight down and reports the object hit; our objects are
@@ -58,9 +61,6 @@ class FourInARowSim(Env):
         # reference's module-level audioLoader (shmem_vec_env.py:16-22)
 
         c = config
-        if c.render or c.episodeImgSaveInterval > 0:
-            raise NotImplementedError(
-                "render and episode-image recording are not ported yet")
         d = OrderedDict(
             [
                 ("image", spaces.Box(0, 255, shape=c.img_dim, dtype=np.uint8)),
@@ -323,14 +323,18 @@ class FourInARowSim(Env):
 
     def _setup_first_step(self):
         self._get_intent_idx()
-        self.goal_sound, _ = self.audio.genSoundFeat(
+        self.goal_sound, clip = self.audio.genSoundFeat(
             intentIdx=self.intentIdx, featType="MFCC",
             rand_fn=self.np_random.randint)
         self.ground_truth = np.int32(self.intentIdx)
+        if self.config.render:
+            # the spoken command, while rendering (RL_env_VAR.py:507,513)
+            play_clip(clip)
 
     def gen_obs(self):
         c = self.config
         image = self.get_image()
+        save_episode_image(c, image, self.episodeCounter, self.envStepCounter)
         if self.envStepCounter == 0:
             self._setup_first_step()
             goal_sound = np.asarray(self.goal_sound, dtype=np.float32)

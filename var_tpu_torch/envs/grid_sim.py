@@ -39,8 +39,9 @@ library, var_tpu_torch/native.py), byte for byte the JAX library's frame.
 `_render_numpy` is its plain version and the device sim's reference: the
 two differ at a few boundary pixels where a float tie falls the other way
 (tests/test_torch_native.py bounds the share). VAR_TPU_NO_NATIVE asks for
-the numpy render. Episode-image recording and render playback are not
-ported: the constructor raises where a config asks for them.
+the numpy render. Episode images (episodeImgSaveInterval) are written as
+PNG by envs/recording.py; with render=True the goal command plays at the
+first step (utils/audio_play.py) and every step draws its current sound.
 """
 from __future__ import annotations
 
@@ -53,6 +54,8 @@ from scipy import ndimage
 from var_tpu_torch.data.audio_store import AudioStore, Task
 from var_tpu_torch.envs import spaces
 from var_tpu_torch.envs.core import Env
+from var_tpu_torch.envs.recording import save_episode_image
+from var_tpu_torch.utils.audio_play import play_clip
 
 WALL_COLOR = np.array([120, 110, 100])
 FLOOR_COLOR = np.array([60, 55, 50])
@@ -87,12 +90,6 @@ class GridHouseSim(Env):
         self.config = config
         self.audio = audio
         c = config
-        if c.render or c.episodeImgSaveInterval > 0:
-            raise NotImplementedError(
-                "render and episode-image recording are not ported yet "
-                "(ROADMAP 'Modules left to port': episode-image "
-                "recording and render playback)")
-
         d = OrderedDict(
             [
                 ("image", spaces.Box(0, 255, shape=c.img_dim, dtype=np.uint8)),
@@ -456,6 +453,7 @@ class GridHouseSim(Env):
     def gen_obs(self):
         c = self.config
         image = self.get_image()
+        save_episode_image(c, image, self.episodeCounter, self.envStepCounter)
         local_occ = self.get_local_occupancy_map()
         # per-step current_sound only when something consumes it (see arm_sim)
         if c.RLRewardSoundSound or c.render:
@@ -464,8 +462,11 @@ class GridHouseSim(Env):
         else:
             sound_positive = np.zeros(c.sound_dim, np.float32)
         if self.envStepCounter == 0:
-            self.goal_sound, _, self.transcription = \
+            self.goal_sound, clip, self.transcription = \
                 self.audio.getAudioFromTask(self.np_random, self.task)
+            if c.render:
+                # the spoken command, while rendering (RL_env_VAR.py:507,513)
+                play_clip(clip)
         else:
             # inf sentinel -> frozen VAR reuses the cached goal embedding
             # (RL_env_VAR.py:498-510)

@@ -15,11 +15,12 @@ var_tpu/train/rl.py: the fused, device-sim and reward-wrapper paths).
   env step on the device, return normalisation on the host), the policy
   acting from host observations, a host RolloutStorage (rl/storage.py)
   uploaded once per PPO update; its eval steps the same wrapped envs;
+- RLManualControl: one env driven by typed keys or 'dx dy' lines under
+  the VAR reward wrapper, the frame written as a PNG each step;
 - CSV progress, checkpoints and the success-rate CSV for all of them.
 
-The other modes of the JAX package wait for later slices and raise
-NotImplementedError naming their ROADMAP entry ("Modules left to port") by
-its title: manual control and meshShape (parallelism).
+meshShape waits for a later slice and raises NotImplementedError naming
+its ROADMAP entry ("Modules left to port") by its title: parallelism.
 """
 from __future__ import annotations
 
@@ -830,13 +831,85 @@ class RLTrainer:
         print("success rate", success_rate)
         return success_rate
 
+    # -- manual control (reference: RL.py:27-38 + keyboard teleop) -------------
+
+    def manualControl(self, num_episodes: int = 50, input_fn=None,
+                      frame_dir: Optional[str] = None):
+        """Drive one env by hand, under the VAR reward wrapper.
+
+        On a real TTY the env's keyBoardMapping keys are read as single
+        raw keypresses (the reference's protocol, RL_env_VAR.py:684-692);
+        piped or scripted stdin gives line commands, and the arm's
+        continuous 'dx dy' actions are always whole lines. Each step writes
+        the frame to <frame_dir>/manual_live.png (episodeImgSaveDir by
+        default) and prints the step's raw VAR reward. An empty line
+        repeats the last command; 'quit' or the end of the input stops.
+        `input_fn` injects a scripted command stream."""
+        from var_tpu_torch.envs.recording import write_png
+        from var_tpu_torch.utils.teleop import make_input_fn
+
+        cfg = self.config
+        if self.pretext_model is None:
+            raise RuntimeError("load_pretext() first: the reward needs a VAR")
+        mapping = getattr(cfg, "keyBoardMapping", None)
+        if input_fn is None:
+            # single keys on a TTY; continuous 'dx dy' actions need lines
+            input_fn = make_input_fn(
+                "action> ", single_key=None if mapping is not None else False)
+        frame_dir = frame_dir or cfg.episodeImgSaveDir
+        os.makedirs(frame_dir, exist_ok=True)
+        envs = self._wrapped_envs(1, cfg.RLGamma)
+        try:
+            envs.reset()
+            last = None
+            for _ in range(num_episodes):
+                for _ in range(cfg.RLEnvMaxSteps):
+                    frame = envs.render()
+                    if frame is not None:
+                        write_png(os.path.join(frame_dir, "manual_live.png"),
+                                  np.asarray(frame))
+                    try:
+                        cmd = input_fn()
+                    except (EOFError, StopIteration):
+                        return
+                    cmd = (cmd or "").strip() or last or ""
+                    if cmd == "quit":
+                        return
+                    last = cmd
+                    if mapping is not None:
+                        if cmd not in mapping:
+                            print(f"unknown key {cmd!r}; "
+                                  f"choose from {list(mapping)}")
+                            continue
+                        action = np.asarray([[list(mapping).index(cmd)]],
+                                            np.int32)
+                    else:
+                        try:
+                            dx, dy = (float(v) for v in cmd.split())
+                        except ValueError:
+                            print("expected 'dx dy' floats")
+                            continue
+                        action = np.asarray([[dx, dy]], np.float32)
+                    _, _, done, _ = envs.step(action)
+                    print("step reward", float(envs.origStepReward[0]))
+                    if done[0]:
+                        break
+        finally:
+            envs.close()
+
     # -- mode dispatch (reference: RL.py:251-284 run) ---------------------------
 
     def run(self):
         cfg = self.config
         if cfg.RLManualControl:
-            raise _not_ported("manual control (RLManualControl)",
-                              "manual control")
+            if cfg.RLManualControlLoaded:
+                self.load_pretext()
+            else:
+                # no VAR to load: a fresh one from an explicit generator
+                # (the rewards then mean nothing, but the env is drivable)
+                model = self.pretextObj.init_model(seed=0)
+                self.pretext_model = model.eval().requires_grad_(False)
+            return self.manualControl()
         self.load_pretext()
         if cfg.RLTrain:
             return self.trainRL()
