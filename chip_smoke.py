@@ -175,6 +175,17 @@ Phase 33 runs what a user drives by hand:
    then run() with RLManualControlLoaded=False (a fresh VAR) reading
    commands from stdin.
 
+Phase 34 runs computeDtype='bfloat16' (the conv stacks in bf16, as the
+JAX package's knob) on both profiles at full width:
+34. each profile's pretext entry point at bf16 on phase 4's or 15's
+   triplets, 3 epochs of 6 steps at batch 128 through the kernel (2
+   launches a step): triplets/s over epochs 1-2 beside phase 4's or 15's
+   float32 median; the device sim at 64 envs on that VAR, 2 PPO updates:
+   env-steps/s, collect and ppo_update p50 beside phase 11's or 17's; then
+   the card against the CPU at bf16 (tools/rl_check.py's bf16
+   tolerances, tests/test_torch_bf16.py's): one pretext step at batch 16
+   and one fused rollout of 10 steps at 8 envs with its PPO update.
+
 It then stops the processes it started (the forkserver and the resource
 tracker are stopped and waited for; a worker left running fails the run;
 this runs on failure too), prints the card's name and power limit as
@@ -597,8 +608,12 @@ def breakdown(torch, trainer, ds, bank):
 RL_UPDATES = 3  # device-sim updates of either profile
 # mel_log_dct launches on each path, each counted from 0 just before it
 LAUNCHES = {}
-RATES = {}  # phase 4's triplets/s and phase 7's env-steps/s, for 25 and 28
-P50 = {}  # phases 7 and 16's fused_step and env_step p50 ms, for 31
+# phases 4 and 15's triplets/s, 7's and 11 and 17's env-steps/s, for 25,
+# 28 and 34
+RATES = {}
+# phases 7 and 16's fused_step and env_step p50 ms, for 31; 11 and 17's
+# collect and ppo_update p50 ms, for 34
+P50 = {}
 
 
 def _width(cfg):
@@ -874,6 +889,9 @@ def devsim_train(torch, np, mld, env="arms"):
     # update 0 holds the first-call set-up (cuDNN plans, allocator growth)
     rates = [n / t for n, t in trainer.update_stats[1:]]
     timer = trainer.timer
+    RATES[env + " devsim"] = statistics.median(rates)
+    P50[env + " devsim"] = (timer.p50_ms("collect"),
+                            timer.p50_ms("ppo_update"))
     print(f"device-sim train [{env}]: env-steps/s over updates "
           f"1-{len(rates)}: "
           f"median {statistics.median(rates):.1f} (min {min(rates):.1f}, max "
@@ -2108,6 +2126,146 @@ def manual_phase(torch, np, mld):
         fail("run() did not dispatch manual control with a fresh VAR")
 
 
+# -- phase 34: computeDtype='bfloat16' on both profiles' paths -----------------
+
+BF16_SET = 'computeDtype="bfloat16"'
+BF16_EPOCHS = 3
+
+
+def bf16_pretext(torch, mld, env):
+    """Phase 34's pretext: the profile's pretext entry point at bf16 on
+    phase 4's or 15's triplets, 3 epochs of 6 steps at batch 128 through
+    the kernel."""
+    from var_tpu_torch.pretext import main as pretext_main
+
+    prof, run = PROFILES[env], RUN_DIR / "bf16" / env
+    argv = [
+        "--env", env, "--set",
+        f'pretextDataDir=["{RUN_DIR / env / "data"}"]',
+        f'pretextModelSaveDir="{run / "model"}"', "pretextCollection=False",
+        'audioBackend="pallas"', "pretextModelFineTune=False",
+        'pretextDataset="VARDataset"', 'vecEnvBackend="dummy"',
+        f"pretextEpoch={BF16_EPOCHS}",
+        f"pretextModelSaveInterval={BF16_EPOCHS}", BF16_SET,
+    ]
+    mld.mel_log_dct.launches = 0
+    t0 = time.perf_counter()
+    trainer = pretext_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = LAUNCHES[prof["key"] + "bf16 pretext"] = \
+        mld.mel_log_dct.launches
+    cfg = trainer.config
+    if cfg.pretextTrainBatchSize != 128 or \
+            tuple(cfg.sound_dim) != prof["sound"] or \
+            trainer.model.dtype != torch.bfloat16:
+        fail(f"the {env} bf16 pretext did not run at full width in bf16")
+    with open(run / "model" / "progress.csv") as f:
+        losses = [float(v) for v in f.read().split()[1:]]
+    rates = [n / t for n, t in trainer.epoch_stats[1:]]
+    print(f"bf16 pretext [{env}]: {trainer.step} steps, mel_log_dct "
+          f"launches {launches} ({launches / trainer.step:g} a step), epoch "
+          f"losses {losses}; triplets/s over epochs 1-{len(rates)}: "
+          f"{[round(r, 1) for r in rates]}, median "
+          f"{statistics.median(rates):.1f}, against phase "
+          f"{'4' if env == 'arms' else '15'}'s float32 median "
+          f"{RATES[env + ' pretext']:.1f}; wall {wall:.2f} s", flush=True)
+    if trainer.step < 12 or launches != 2 * trainer.step \
+            or len(losses) != BF16_EPOCHS \
+            or not all(map(math.isfinite, losses)):
+        fail(f"the {env} bf16 pretext: expected 2 launches a step and "
+             f"{BF16_EPOCHS} finite epoch losses")
+
+
+def bf16_devsim(torch, mld, env):
+    """Phase 34's device sim: 2 PPO updates at 64 envs on the bf16 VAR."""
+    from var_tpu_torch.rl import main as rl_main
+
+    prof, run = PROFILES[env], RUN_DIR / "bf16" / env
+    updates = 2
+    argv = [
+        "--env", env, "--set",
+        f'pretextModelLoadDir="{run / "model" / str(BF16_EPOCHS - 1)}"',
+        f'RLModelSaveDir="{run / "rl_devsim"}"', "RLTrain=True",
+        "RLModelFineTune=False", "RLDeviceSimRollout=True",
+        f"RLNumEnvs={DS_ENVS}",
+        f"RLTotalSteps={updates * DS_ENVS * prof['steps']}",
+        "RLModelSaveInterval=1", "RLLogInterval=1", BF16_SET,
+    ]
+    mld.mel_log_dct.launches = 0
+    t0 = time.perf_counter()
+    trainer = rl_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = LAUNCHES[prof["key"] + "bf16 device-sim train"] = \
+        mld.mel_log_dct.launches
+    cfg = trainer.config
+    if _width(cfg) != (DS_ENVS, prof["steps"], prof["gru"], 128, 128, 4, 2,
+                       (3, 96, 96), 3) \
+            or trainer.policy.base.dtype != torch.bfloat16 \
+            or trainer.pretext_model.dtype != torch.bfloat16:
+        fail(f"the {env} bf16 device sim did not run at full width in bf16")
+    with open(run / "rl_devsim" / "progress.csv") as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r[k]) for r in rows
+              for k in ("loss/value_loss", "loss/policy_loss",
+                        "loss/policy_entropy")]
+    rate = trainer.update_stats[1][0] / trainer.update_stats[1][1]
+    timer = trainer.timer
+    collect, update = P50[env + " devsim"]
+    print(f"bf16 device-sim train [{env}]: {len(rows)} updates, losses "
+          f"{losses}; env-steps/s at update 1 {rate:.1f} against phase "
+          f"{'11' if env == 'arms' else '17'}'s float32 median "
+          f"{RATES[env + ' devsim']:.1f}; p50 ms collect (dispatch) "
+          f"{timer.p50_ms('collect'):.4f} against {collect:.4f}, "
+          f"ppo_update {timer.p50_ms('ppo_update'):.4f} against "
+          f"{update:.4f}; mel_log_dct launches {launches}; wall "
+          f"{wall:.2f} s", flush=True)
+    if len(rows) != updates or launches != 0 \
+            or not all(map(math.isfinite, losses)):
+        fail(f"the {env} bf16 device sim: expected {updates} updates with "
+             "finite losses and no mel_log_dct launch")
+
+
+def bf16_card_against_cpu(env):
+    """Phase 34's check: one pretext step (batch 16, the profile's full
+    widths) and one fused rollout of 10 steps with its PPO update (8 envs,
+    full width), card against CPU at bf16 (tools/rl_check.py's bf16
+    tolerances)."""
+    from var_tpu_torch.config import main_config
+    from var_tpu_torch.tools.rl_check import (card_against_cpu,
+                                              pretext_card_against_cpu)
+
+    cfg = main_config(env=env)
+    cfg.override(computeDtype="bfloat16", audioBackend="pallas",
+                 pretextTrainBatchSize=16)
+    t0 = time.perf_counter()
+    pretext = pretext_card_against_cpu(cfg)
+    print(f"bf16 card vs cpu [{env}], one pretext step at batch 16: "
+          f"{pretext} in {time.perf_counter() - t0:.2f} s", flush=True)
+    cfg = main_config(env=env)
+    cfg.override(computeDtype="bfloat16", RLTrain=True, ppoNumSteps=10,
+                 RLEnvMaxSteps=5, vecEnvBackend="dummy")
+    t0 = time.perf_counter()
+    fused = card_against_cpu(cfg)
+    print(f"bf16 card vs cpu [{env}], fused rollout and update (8 envs x "
+          f"10 steps, full width): {fused} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if not (pretext["ok"] and fused["ok"]):
+        fail(f"the {env} bf16 paths differ between the card and the CPU")
+
+
+def bf16_phase(torch, mld):
+    """Phase 34: both profiles' pretext and device sim at bf16, and the
+    card against the CPU at bf16."""
+    for env in ("arms", "ai2thor"):
+        bf16_pretext(torch, mld, env)
+        bf16_devsim(torch, mld, env)
+        bf16_card_against_cpu(env)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -2165,6 +2323,9 @@ def main():
     t0 = time.perf_counter()
     manual_phase(torch, np, mld)
     print(f"phase 33 in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    bf16_phase(torch, mld)
+    print(f"phase 34 in {time.perf_counter() - t0:.1f} s", flush=True)
 
     stop_children()  # before the result: nothing outlives the script
     kernel["launches_by_path"] = dict(LAUNCHES)

@@ -45,7 +45,8 @@ from var_tpu_torch.convert import ai2thor_policy_state_dict, ai2thor_state_dict
 from var_tpu_torch.data import audio_store as tstore
 from var_tpu_torch.envs import spaces as tspaces
 from var_tpu_torch.models import policy as tpolicy
-from var_tpu_torch.models.encoders import VARPretextNet, build_pretext_model
+from var_tpu_torch.models.encoders import (VARPretextNet, build_pretext_model,
+                                           conv)
 from var_tpu_torch.ops import gru as tgru
 from var_tpu_torch.rl import main as rl_main
 from var_tpu_torch.tools import e2e_run
@@ -238,8 +239,17 @@ def test_registry_builds_the_crnn():
     assert isinstance(model.sound_branch, type(VARPretextNet(3, "ai2thor")
                                                .sound_branch))
     tcfg.override(computeDtype="bfloat16")
-    with pytest.raises(NotImplementedError):
-        build_pretext_model(tcfg)
+    model = build_pretext_model(tcfg)
+    assert model.dtype == torch.bfloat16
+    snd = torch.randn(2, 1, 100, 40)
+    with torch.no_grad():
+        # the CRNN's convs run in bf16, its GRU in float32 (state cast back)
+        assert conv(model.sound_branch.convs[0], snd,
+                    model.sound_branch.dtype).dtype == torch.bfloat16
+        assert model.encode_image(torch.rand(2, 3, 96, 96))[0].dtype == \
+            torch.bfloat16
+        raw, feat = model.encode_sound(snd)
+    assert raw.dtype == torch.bfloat16 and feat.dtype == torch.float32
 
 
 def test_one_train_step_matches_jax(monkeypatch):

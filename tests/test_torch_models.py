@@ -15,7 +15,8 @@ from var_tpu.models.encoders import VARPretextNet as JaxVAR
 from var_tpu.ops import losses as jlosses
 from var_tpu_torch.config import main_config
 from var_tpu_torch.convert import arm_state_dict, flatten_perm
-from var_tpu_torch.models.encoders import VARPretextNet, build_pretext_model
+from var_tpu_torch.models.encoders import (VARPretextNet, build_pretext_model,
+                                           conv)
 from var_tpu_torch.ops import losses
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -136,5 +137,13 @@ def test_model_registry():
     cfg.override(pretextModel="ai2thor_VARPretextNet")
     assert build_pretext_model(cfg).variant == "ai2thor"
     cfg.override(pretextModel="arm_VARPretextNet", computeDtype="bfloat16")
-    with pytest.raises(NotImplementedError):
-        build_pretext_model(cfg)
+    model = build_pretext_model(cfg)
+    assert model.dtype == torch.bfloat16
+    img = torch.rand(2, 3, 96, 96)
+    assert conv(model.img_branch.convs[0], img,
+                model.img_branch.dtype).dtype == torch.bfloat16
+    raw, feat = model.encode_image(img)
+    assert raw.dtype == torch.bfloat16 and feat.dtype == torch.float32
+    assert model.encode_sound(torch.randn(2, 1, 100, 40))[0].dtype == \
+        torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.parameters())

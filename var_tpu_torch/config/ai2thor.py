@@ -151,7 +151,7 @@ class AI2ThorConfig(ConfigBase):
 
         # --- backend settings (same names as var_tpu's) ---
         self.meshShape = None
-        self.computeDtype = "float32"  # only float32 is ported
+        self.computeDtype = "float32"  # or "bfloat16": bf16 conv stacks
         # 'fft' | 'gemm' | 'pallas' (the CUDA mel-log-DCT kernel), as arm.py
         self.audioBackend = "fft"
         self.simBackend = "builtin"  # 'builtin' gridworld sim | 'ithor' adapter

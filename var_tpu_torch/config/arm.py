@@ -157,7 +157,7 @@ class ArmConfig(ConfigBase):
 
         # --- backend settings (same names as var_tpu's) ---
         self.meshShape = None  # e.g. {'dp': 8}; None = single device
-        self.computeDtype = "float32"  # only float32 is ported
+        self.computeDtype = "float32"  # or "bfloat16": bf16 conv stacks
         # 'fft' (torch.fft.rfft) | 'gemm' (conv1d DFT) | 'pallas' (gemm
         # power spectrum + the hand-written CUDA mel-log-DCT kernel)
         self.audioBackend = "fft"

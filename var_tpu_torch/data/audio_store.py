@@ -12,9 +12,10 @@ generates class-distinguishable clips with the same RandomState seeds
 (1000 + intent for the arm, 2000 + class for ai2thor) and the same
 VAR_TPU_SYNTH_CLIPS count as the JAX package, so both packages hold
 byte-identical banks. The FSC metadata CSV is read with the csv module
-(the JAX package uses pandas) and selects the same rows in the same order.
-The python_speech_features MFCC branch and FSC clips for the arm profile
-are not ported.
+(the JAX package uses pandas) and selects the same rows in the same order,
+for the ai2thor vocabulary and for the arm's 'location_object_action'
+items. `get_mfcc(mfcc_from='psf')` is the python_speech_features twin
+(ops/audio.py::mfcc_psf).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import numpy as np
 from var_tpu_torch.ops.audio import (
     PARAM_TABLE,
     STFTParams,
+    mfcc_psf,
     mfcc_single,
     pack_waveform,
     process_sound_feat,
@@ -131,8 +133,8 @@ class AudioStore:
             self.words[i] = {}
         for dataset in cfg.soundSource["dataset"]:
             if dataset == "FSC":
-                raise NotImplementedError(
-                    "FSC clips for the arm profile are not ported yet")
+                self._load_fsc_pybullet()
+                continue
             items = cfg.soundSource["items"][dataset]
             sizes = cfg.soundSource["size"][dataset]
             max_dur = cfg.soundSource.get("max_sound_dur", {}).get(dataset, 6.0)
@@ -162,6 +164,44 @@ class AudioStore:
                 "AudioStore: no wav corpora found under "
                 f"{cfg.commonMediaPath!r}; using the synthetic source"
             )
+
+    def _load_fsc_pybullet(self):
+        """FSC utterances keyed by arm intent: each entry of
+        soundSource['items']['FSC'] is a 'location_object_action' string
+        selecting the CSV's rows of that task, in the CSV's order, up to
+        soundSource['size']['FSC'][intent] clips of at most
+        max_sound_dur['FSC'] seconds."""
+        cfg = self.config
+        src = cfg.soundSource
+        csv_path = os.path.join(cfg.commonMediaPath, "FSC", "data",
+                                src.get("FSC_csv",
+                                        src.get("train_test", "train")
+                                        + "_data.csv"))
+        if not os.path.exists(csv_path):
+            warnings.warn(f"FSC metadata not found at {csv_path!r}")
+            return
+        with open(csv_path, newline="") as f:
+            rows = list(csv.DictReader(f))
+        max_dur = src.get("max_sound_dur", {}).get("FSC", 6.0)
+        for i, item in enumerate(src["items"]["FSC"]):
+            if item is None:
+                continue
+            load_size = src["size"]["FSC"][i]
+            loc, obj, act = item.split("_")
+            clips = []
+            for row in rows:
+                if (row.get("object"), row.get("action"),
+                        row.get("location")) != (obj, act, loc):
+                    continue
+                clip = self._read_wav(
+                    os.path.join(cfg.commonMediaPath, "FSC", row["path"]))
+                if clip is None or len(clip) > max_dur * FS:
+                    continue
+                clips.append(clip)
+                if len(clips) >= load_size:
+                    break
+            if clips:
+                self.words[i]["FSC"] = clips
 
     def _load_ai2thor(self):
         """words[loc][obj][act] = [clips] from the FSC metadata CSV, or the
@@ -276,11 +316,13 @@ class AudioStore:
 
     def get_mfcc(self, audioSamples, param: STFTParams,
                  mfcc_from: str = "torchaudio", backend: str = "numpy"):
-        """One clip to a padded (1, T, 40) feature (torchaudio semantics)."""
-        if mfcc_from != "torchaudio":
-            raise NotImplementedError(
-                f"mfcc_from={mfcc_from!r} is not ported; only 'torchaudio'")
-        feat = mfcc_single(audioSamples, param, backend=backend)
+        """One clip to a padded (1, T, 40) feature: torchaudio's semantics,
+        or with any other `mfcc_from` (e.g. 'psf') python_speech_features',
+        as the JAX package selects them."""
+        if mfcc_from == "torchaudio":
+            feat = mfcc_single(audioSamples, param, backend=backend)
+        else:
+            feat = mfcc_psf(np.asarray(audioSamples), param)
         return process_sound_feat(feat, self.config.sound_dim[1])
 
     def genSoundFeat(self, intentIdx: int, featType: str, rand_fn,

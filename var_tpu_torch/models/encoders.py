@@ -12,6 +12,15 @@ order, so the GRU's weights need no permutation.
 Parameters start the way flax initialises them (truncated-normal
 lecun kernels, zero biases) so that a port run trains from the same kind
 of start; the draws come from a torch.Generator and differ from JAX's.
+
+computeDtype='bfloat16' follows flax's `promote_dtype` for a Conv or Dense
+with `dtype=bfloat16`: the layer's input, kernel and bias are cast to
+bf16, the product is rounded to bf16 before the bias is added, and ReLU
+and max-pool run on bf16. Explicit casts, not torch.autocast, which picks
+its own dtype per op. The parameters stay float32 and their gradients
+come back float32 through the casts. Each head's output is cast to
+float32 before the L2 norm; the CRNN's GRU runs in float32 between its
+bf16 convs and its bf16 head.
 """
 from __future__ import annotations
 
@@ -24,6 +33,37 @@ import torch.nn.functional as F
 
 from var_tpu_torch.ops.gru import GRUParams, bigru_final
 from var_tpu_torch.ops.losses import l2_normalize
+
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(config) -> torch.dtype:
+    """The config's computeDtype as a torch dtype."""
+    name = getattr(config, "computeDtype", "float32")
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(
+            f"computeDtype={name!r}; have {sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
+
+
+def conv(layer: nn.Conv2d, x: torch.Tensor,
+         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """`layer(x)`; at another dtype, flax's Conv at that dtype: input,
+    kernel and bias cast, the product rounded before the bias is added."""
+    if dtype == torch.float32:
+        return layer(x)
+    y = F.conv2d(x.to(dtype), layer.weight.to(dtype), None, layer.stride,
+                 layer.padding)
+    return y + layer.bias.to(dtype)[:, None, None]
+
+
+def dense(layer: nn.Linear, x: torch.Tensor,
+          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """`layer(x)`; at another dtype, flax's Dense at that dtype."""
+    if dtype == torch.float32:
+        return layer(x)
+    return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
 
 
 @torch.no_grad()
@@ -46,16 +86,17 @@ def flax_default_init_(module: nn.Module,
 class ArmImageBranch(nn.Module):
     """5x (3x3 stride-2 conv + ReLU): (3,96,96) -> (64,3,3) -> flatten."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         chans = (3, 32, 32, 64, 64, 64)
         self.convs = nn.ModuleList(
             nn.Conv2d(chans[i], chans[i + 1], 3, stride=2, padding=1)
             for i in range(5))
 
     def forward(self, x):
-        for conv in self.convs:
-            x = F.relu(conv(x))
+        for layer in self.convs:
+            x = F.relu(conv(layer, x, self.dtype))
         return x.flatten(1)  # (B, 64*3*3)
 
 
@@ -63,15 +104,16 @@ class ArmSoundBranch(nn.Module):
     """Conv stack over (1,100,40) MFCC collapsing the feature axis:
     (1,100,40) -> (32,48,1) -> ... -> (32,5,1) -> flatten."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.convs = nn.ModuleList(
             [nn.Conv2d(1, 32, (5, 40), stride=(2, 1))]
             + [nn.Conv2d(32, 32, (3, 1), stride=(2, 1)) for _ in range(3)])
 
     def forward(self, x):
-        for conv in self.convs:
-            x = F.relu(conv(x))
+        for layer in self.convs:
+            x = F.relu(conv(layer, x, self.dtype))
         return x.flatten(1)  # (B, 32*5*1)
 
 
@@ -82,16 +124,17 @@ class AI2ThorImageBranch(nn.Module):
     # convs 1-4
     LAYERS = ((32, 1), (32, 1), (64, 1), (64, 1), (128, 1), (128, 2))
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         chans = (3,) + tuple(c for c, _ in self.LAYERS)
         self.convs = nn.ModuleList(
             nn.Conv2d(chans[i], chans[i + 1], 3, stride=s, padding=1)
             for i, (_, s) in enumerate(self.LAYERS))
 
     def forward(self, x):
-        for i, conv in enumerate(self.convs):
-            x = F.relu(conv(x))
+        for i, layer in enumerate(self.convs):
+            x = F.relu(conv(layer, x, self.dtype))
             if 1 <= i <= 4:
                 x = F.max_pool2d(x, 2)  # 48, 24, 12, 6
         return x.flatten(1)  # (B, 128*3*3)
@@ -104,8 +147,9 @@ class AI2ThorSoundBranch(nn.Module):
 
     HIDDEN = 512
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.convs = nn.ModuleList([
             nn.Conv2d(1, 64, (11, 11), stride=2, padding=(5, 5)),
             nn.Conv2d(64, 64, (11, 5), stride=2, padding=(5, 5)),
@@ -131,26 +175,29 @@ class AI2ThorSoundBranch(nn.Module):
                 p.uniform_(-s, s, generator=generator)
 
     def forward(self, x):
-        for conv in self.convs:
-            x = F.relu(conv(x))  # (B, 64, 73, 7) after the third
+        for layer in self.convs:
+            x = F.relu(conv(layer, x, self.dtype))  # (B, 64, 73, 7) last
         seq = x.permute(0, 2, 3, 1).flatten(2)  # (B, 73, 7*64), (W, C) order
-        return bigru_final(self._gru("fwd"), self._gru("bwd"), seq)
+        return bigru_final(self._gru("fwd"), self._gru("bwd"),
+                           seq.float()).to(self.dtype)
 
 
 class TripletHead(nn.Module):
     """MLP projection head ending at representationDim, before the L2 norm.
     layers[i] holds the JAX package's Dense_i."""
 
-    def __init__(self, in_dim: int, hidden: Sequence[int], out_dim: int):
+    def __init__(self, in_dim: int, hidden: Sequence[int], out_dim: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         dims = (in_dim, *hidden, out_dim)
         self.layers = nn.ModuleList(
             nn.Linear(dims[i], dims[i + 1]) for i in range(len(dims) - 1))
 
     def forward(self, x):
         for layer in self.layers[:-1]:
-            x = F.relu(layer(x))
-        return self.layers[-1](x)
+            x = F.relu(dense(layer, x, self.dtype))
+        return dense(self.layers[-1], x, self.dtype)
 
 
 class VARPretextNet(nn.Module):
@@ -158,23 +205,26 @@ class VARPretextNet(nn.Module):
     the L2-normalised representation sphere. `variant` selects the arm
     conv/conv or the ai2thor conv/CRNN architecture."""
 
-    def __init__(self, representation_dim: int = 3, variant: str = "arm"):
+    def __init__(self, representation_dim: int = 3, variant: str = "arm",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.variant = variant
+        self.dtype = dtype
         if variant == "arm":
-            self.img_branch = ArmImageBranch()
-            self.sound_branch = ArmSoundBranch()
+            self.img_branch = ArmImageBranch(dtype)
+            self.sound_branch = ArmSoundBranch(dtype)
             self.img_triplet = TripletHead(64 * 3 * 3, (128,),
-                                           representation_dim)
+                                           representation_dim, dtype)
             self.sound_triplet = TripletHead(32 * 5, (128,),
-                                             representation_dim)
+                                             representation_dim, dtype)
         elif variant == "ai2thor":
-            self.img_branch = AI2ThorImageBranch()
-            self.sound_branch = AI2ThorSoundBranch()
+            self.img_branch = AI2ThorImageBranch(dtype)
+            self.sound_branch = AI2ThorSoundBranch(dtype)
             self.img_triplet = TripletHead(128 * 3 * 3, (128,),
-                                           representation_dim)
+                                           representation_dim, dtype)
             self.sound_triplet = TripletHead(
-                2 * AI2ThorSoundBranch.HIDDEN, (128, 64), representation_dim)
+                2 * AI2ThorSoundBranch.HIDDEN, (128, 64), representation_dim,
+                dtype)
         else:
             raise ValueError(variant)
 
@@ -189,12 +239,12 @@ class VARPretextNet(nn.Module):
     def encode_image(self, image):
         """image (B,3,96,96) in [0,1] -> (raw_feat, sphere_feat)."""
         raw = self.img_branch(image[:, :3])
-        return raw, l2_normalize(self.img_triplet(raw))
+        return raw, l2_normalize(self.img_triplet(raw).float())
 
     def encode_sound(self, sound):
         """sound (B,1,T,40) MFCC -> (raw_feat, sphere_feat)."""
         raw = self.sound_branch(sound)
-        return raw, l2_normalize(self.sound_triplet(raw))
+        return raw, l2_normalize(self.sound_triplet(raw).float())
 
     def forward(self, image, sound_positive,
                 sound_negative=None) -> Dict[str, torch.Tensor]:
@@ -211,11 +261,8 @@ class VARPretextNet(nn.Module):
 
 def _builder(variant: str):
     def build(config) -> VARPretextNet:
-        dtype = getattr(config, "computeDtype", "float32")
-        if dtype != "float32":
-            raise NotImplementedError(
-                f"computeDtype={dtype!r} is not ported; only float32 is")
-        return VARPretextNet(config.representationDim, variant)
+        return VARPretextNet(config.representationDim, variant,
+                             compute_dtype(config))
 
     return build
 

@@ -19,6 +19,12 @@ parameters. Every MLP Linear starts orthogonal with the reference's gain
 and the occupancy branch's two Linears at flax's defaults (as the JAX
 package's plain nn.Dense); the draws come from a torch.Generator and
 differ from JAX's.
+
+computeDtype='bfloat16' runs the conv stacks and their max-pools in bf16,
+as flax's Conv at that dtype (models/encoders.py::conv), on uint8 pixels
+scaled in bf16 in the JAX package's order; the flattened features are
+cast to float32, and the MLPs, the GRU, the heads and the distributions
+stay float32.
 """
 from __future__ import annotations
 
@@ -38,7 +44,8 @@ from var_tpu_torch.models.distributions import (
     orthogonal_linear,
     sample,
 )
-from var_tpu_torch.models.encoders import flax_default_init_
+from var_tpu_torch.models.encoders import (compute_dtype, conv,
+                                           flax_default_init_)
 from var_tpu_torch.ops.gru import GRUParams, gru_scan
 
 SQRT2 = 1.4142135623730951
@@ -89,15 +96,17 @@ def _convs(plan, in_channels: int) -> nn.ModuleList:
     return nn.ModuleList(convs)
 
 
-def _run_convs(plan, convs: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
-    """The stack with ReLU after each conv and 2x2 max-pools; flattened."""
+def _run_convs(plan, convs: nn.ModuleList, x: torch.Tensor,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The stack at `dtype` with ReLU after each conv and 2x2 max-pools;
+    flattened and cast to float32."""
     it = iter(convs)
     for layer in plan:
         if layer == "pool":
             x = F.max_pool2d(x, 2)
         else:
-            x = F.relu(next(it)(x))
-    return x.flatten(1)
+            x = F.relu(conv(next(it), x, dtype))
+    return x.flatten(1).float()
 
 
 def _mlp(in_features: int, sizes: Sequence[int]) -> nn.ModuleList:
@@ -113,12 +122,18 @@ def _run(layers: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _norm_img(x: torch.Tensor) -> torch.Tensor:
+def _norm_img(x: torch.Tensor,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """uint8 pixels are scaled here (storage and transfers stay 4x
-    smaller); float input is already in [0, 1]."""
+    smaller); float input is already in [0, 1]. At bf16 the pixels are
+    cast first and multiplied by 1/255 rounded to bf16, as jnp does with
+    a Python scalar."""
     if x.dtype == torch.uint8:
-        return x.to(torch.float32) * (1.0 / 255.0)
-    return x.to(torch.float32)
+        if dtype == torch.float32:
+            return x.to(torch.float32) * (1.0 / 255.0)
+        return x.to(dtype) * torch.tensor(1.0 / 255.0, dtype=dtype,
+                                          device=x.device)
+    return x.to(dtype)
 
 
 class PolicyGRU(nn.Module):
@@ -154,9 +169,11 @@ class ArmPolicyBase(nn.Module):
     def __init__(self, representation_dim: int = 3, robot_state_dim: int = 2,
                  recurrent: bool = True, recurrent_input_size: int = 128,
                  recurrent_size: int = 512, action_hidden_size: int = 128,
-                 img_dim: Sequence[int] = (3, 96, 96)):
+                 img_dim: Sequence[int] = (3, 96, 96),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.recurrent = recurrent
+        self.dtype = dtype
         self.plan = conv_plan(img_dim)
         self.convs = _convs(self.plan, img_dim[0])
         flat = math.prod(conv_grid(img_dim))
@@ -184,7 +201,8 @@ class ArmPolicyBase(nn.Module):
 
     def forward(self, obs: Dict[str, torch.Tensor], rnn_hx, masks,
                 seq_len: int = 1):
-        x = _run_convs(self.plan, self.convs, _norm_img(obs["image"]))
+        x = _run_convs(self.plan, self.convs,
+                       _norm_img(obs["image"], self.dtype), self.dtype)
         image_flatten = _run(self.cnnMlp, x)
         motor = _run(self.motorMlp,
                      torch.cat([obs["image_feat"], obs["robot_pose"]], dim=1))
@@ -207,9 +225,11 @@ class AI2ThorPolicyBase(nn.Module):
     def __init__(self, representation_dim: int = 3, recurrent: bool = True,
                  recurrent_input_size: int = 128, recurrent_size: int = 1024,
                  action_hidden_size: int = 128,
-                 img_dim: Sequence[int] = (3, 96, 96), occupancy_grid: int = 9):
+                 img_dim: Sequence[int] = (3, 96, 96), occupancy_grid: int = 9,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.recurrent = recurrent
+        self.dtype = dtype
         self.convs = _convs(AI2THOR_CONVS, img_dim[0])
         self.occ_convs = _convs(OCCUPANCY_CONVS, 1)
         occ_flat = math.prod(conv_grid((1, occupancy_grid, occupancy_grid),
@@ -241,9 +261,10 @@ class AI2ThorPolicyBase(nn.Module):
 
     def forward(self, obs: Dict[str, torch.Tensor], rnn_hx, masks,
                 seq_len: int = 1):
-        x = _run_convs(AI2THOR_CONVS, self.convs, _norm_img(obs["image"]))
+        x = _run_convs(AI2THOR_CONVS, self.convs,
+                       _norm_img(obs["image"], self.dtype), self.dtype)
         o = _run_convs(OCCUPANCY_CONVS, self.occ_convs,
-                       _norm_img(obs["occupancy"]))
+                       _norm_img(obs["occupancy"], self.dtype), self.dtype)
         occupancy_feat = _run(self.occMlp, o)
         image_flatten = _run(self.cnnMlp, x)
         motor = _run(self.motorMlp, obs["image_feat"])
@@ -274,7 +295,8 @@ class Policy(nn.Module):
                  representation_dim: int = 3, robot_state_dim: int = 2,
                  recurrent: bool = True, recurrent_input_size: int = 128,
                  recurrent_size: int = 512, action_hidden_size: int = 128,
-                 img_dim: Sequence[int] = (3, 96, 96), occupancy_grid: int = 9):
+                 img_dim: Sequence[int] = (3, 96, 96), occupancy_grid: int = 9,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.recurrent = recurrent
         self.recurrent_size = recurrent_size
@@ -283,7 +305,8 @@ class Policy(nn.Module):
                       recurrent=recurrent,
                       recurrent_input_size=recurrent_input_size,
                       recurrent_size=recurrent_size,
-                      action_hidden_size=action_hidden_size, img_dim=img_dim)
+                      action_hidden_size=action_hidden_size, img_dim=img_dim,
+                      dtype=dtype)
         if cls is ArmPolicyBase:
             kwargs["robot_state_dim"] = robot_state_dim
         else:
@@ -340,10 +363,6 @@ def evaluate_actions(model: Policy, obs, rnn_hx, masks, actions,
 def build_policy(config, action_space) -> Policy:
     """Construct from config knobs (reference: RL.py:99-110), with its
     parameters left for reset_parameters or a load."""
-    dtype = getattr(config, "computeDtype", "float32")
-    if dtype != "float32":
-        raise NotImplementedError(
-            f"computeDtype={dtype!r} is not ported; only float32 is")
     return Policy(
         base_name=config.RLPolicyBase,
         action_space=action_space,
@@ -355,4 +374,5 @@ def build_policy(config, action_space) -> Policy:
         action_hidden_size=config.RLActionHiddenSize,
         img_dim=tuple(getattr(config, "img_dim", (3, 96, 96))),
         occupancy_grid=getattr(config, "RLVisibleGrid", 9),
+        dtype=compute_dtype(config),
     )

@@ -26,10 +26,15 @@ the `audioBackend` knob with the same names as in the JAX package:
 Variable-length clips use fixed buffers plus an integer sample length;
 frames beyond 1 + len//hop are zeroed, and `zero_mask` rows (the "empty
 intent" class) give an all-zero feature.
+
+`mfcc_psf` is the other semantics the JAX package offers on the host
+(`get_mfcc(mfcc_from=...)`): python_speech_features' mfcc, in numpy
+float64.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -315,3 +320,59 @@ def process_sound_feat(feat: np.ndarray, target_frames: int) -> np.ndarray:
         pad = np.zeros((1, target_frames - nf, feat.shape[2]), dtype=feat.dtype)
         feat = np.concatenate([feat, pad], axis=1)
     return feat
+
+
+# -- python_speech_features semantics (host) ---------------------------------
+
+
+def psf_filterbank(nfilt: int, n_fft: int, sample_rate: int,
+                   lowfreq: float = 0.0, highfreq=None) -> np.ndarray:
+    """python_speech_features.get_filterbanks: triangles on FFT bin
+    indices floored from the HTK mel points (torchaudio's triangles sit on
+    continuous frequencies). Returns (nfilt, n_fft//2+1)."""
+    highfreq = highfreq or sample_rate / 2.0
+    m_pts = np.linspace(hz_to_mel_htk(lowfreq), hz_to_mel_htk(highfreq),
+                        nfilt + 2)
+    bins = np.floor((n_fft + 1) * mel_to_hz_htk(m_pts) / sample_rate)
+    fb = np.zeros((nfilt, n_fft // 2 + 1))
+    for j in range(nfilt):
+        for i in range(int(bins[j]), int(bins[j + 1])):
+            fb[j, i] = (i - bins[j]) / (bins[j + 1] - bins[j])
+        for i in range(int(bins[j + 1]), int(bins[j + 2])):
+            fb[j, i] = (bins[j + 2] - i) / (bins[j + 2] - bins[j + 1])
+    return fb
+
+
+def mfcc_psf(wav: np.ndarray, params: STFTParams, numcep: int = 40,
+             nfilt: int = 40, preemph: float = 0.97, ceplifter: int = 22,
+             append_energy: bool = True) -> np.ndarray:
+    """python_speech_features.mfcc with a hamming window -> (frames,
+    numcep) float32: raw int16 amplitudes (no /32768), 0.97 pre-emphasis,
+    uncentred frames (ceil count, zero tail), |rfft|^2/NFFT, the floored
+    filterbank, eps for zero energies, ortho DCT-II of the log energies,
+    sinusoidal lifter (L=22), log frame energy as coefficient 0."""
+    n_fft, frame_len, frame_step, fs = params
+    signal = np.asarray(wav, dtype=np.float64)
+    signal = np.append(signal[0], signal[1:] - preemph * signal[:-1])
+    slen = signal.shape[0]
+    if slen <= frame_len:
+        numframes = 1
+    else:
+        numframes = 1 + int(math.ceil((1.0 * slen - frame_len) / frame_step))
+    padlen = (numframes - 1) * frame_step + frame_len
+    padded = np.concatenate([signal, np.zeros(padlen - slen)])
+    idx = (np.arange(numframes)[:, None] * frame_step
+           + np.arange(frame_len)[None, :])
+    frames = padded[idx] * np.hamming(frame_len)[None, :]
+    pspec = (np.abs(np.fft.rfft(frames, n_fft)) ** 2) / n_fft
+    energy = pspec.sum(axis=1)
+    energy = np.where(energy == 0, np.finfo(np.float64).eps, energy)
+    feat = pspec @ psf_filterbank(nfilt, n_fft, fs).T
+    feat = np.where(feat == 0, np.finfo(np.float64).eps, feat)
+    feat = np.log(feat) @ dct_matrix(numcep, nfilt)
+    if ceplifter > 0:
+        n = np.arange(numcep)
+        feat = feat * (1.0 + (ceplifter / 2.0) * np.sin(np.pi * n / ceplifter))
+    if append_energy:
+        feat[:, 0] = np.log(energy)
+    return feat.astype(np.float32)

@@ -14,8 +14,9 @@ testRL); --device-eval-per-class adds the device-sim evaluator
 (RLDeviceSimEval) at that many episodes per class. Each run updates one
 profile entry of the JSON at --out, under build/ by default. The device
 is CUDA unless --device says otherwise; there cuDNN picks the fastest
-float32 algorithm for each convolution shape by timing
-(torch.backends.cudnn.benchmark). The grid recipe:
+algorithm for each convolution shape by timing
+(torch.backends.cudnn.benchmark). `--set computeDtype='bfloat16'` reaches
+every stage and leg, as any --set knob. The grid recipe:
 
     python -m var_tpu_torch.tools.e2e_run WORK --env ai2thor --device-sim \
         --num-envs 64 --rl-steps 10000000 --rl-lr 6e-5 \
@@ -251,7 +252,7 @@ def main(argv=None):
     device = str(resolve_device(args.device))
     import torch
 
-    # a run's convolution shapes are fixed, so let cuDNN time its float32
+    # a run's convolution shapes are fixed, so let cuDNN time its
     # algorithms for each and keep the fastest (TF32 stays off)
     benchmark = torch.backends.cudnn.benchmark
     torch.backends.cudnn.benchmark = torch.device(device).type == "cuda"

@@ -1,8 +1,9 @@
 """The RL paths on the card against the same on the CPU (chip_smoke.py
-phases 9, 13, 23 and, for the ai2thor grid, 18; tests/test_torch_kernels.py
-at reduced width). Each check takes the profile from its config: the arm
-(Gaussian actions, the gripper pose) or the ai2thor grid (categorical
-actions, the occupancy crop, the CRNN VAR).
+phases 9, 13, 23 and, for the ai2thor grid, 18; at bf16 phase 34;
+tests/test_torch_kernels.py at reduced width), and one pretext step
+(pretext_card_against_cpu, phase 34). Each check takes the profile from
+its config: the arm (Gaussian actions, the gripper pose) or the ai2thor
+grid (categorical actions, the occupancy crop, the CRNN VAR).
 
 card_against_cpu (the fused path): from the same VAR and policy weights, a
 `config.ppoNumSteps`-step rollout runs through a CUDA engine and a CPU
@@ -38,6 +39,18 @@ after the update: within 2 * lr per optimizer step + 5e-5, with a median
 difference below 1e-6, as tests/test_torch_pretext.py holds an Adam step:
 Adam moves each weight by about +-lr whatever the size of its gradient, so
 a near-zero gradient that rounds to the other sign differs by 2 * lr.
+
+At computeDtype='bfloat16' the conv stacks round to bf16 (unit roundoff
+EPS = 2^-8) and the two devices' convolutions sum in another order, so a
+sum can land on the other side of a bf16 rounding boundary, and the flips
+cascade; the tolerances are tests/test_torch_bf16.py's, which states
+their reasons: embeddings within EMBED_EPS = 4 EPS a component; what
+derives from the VAR reward (raw and normalised rewards, returns, the
+return-RMS) within 2 sqrt(representationDim) EMBED_EPS of the tensor's
+largest magnitude; values, log-probs and actions within 2 EPS of it;
+losses within EPS of the larger of their size and 1; parameters within
+the same Adam bound, with a median difference of at most lr/10 per
+optimizer step.
 """
 from __future__ import annotations
 
@@ -47,14 +60,56 @@ import numpy as np
 import torch
 
 TOL = 1e-4
+BF16_EPS = 2.0 ** -8
+EMBED_EPS = 4
+
+
+def _pair(got, want):
+    return (torch.as_tensor(np.asarray(got)).double(),
+            torch.as_tensor(np.asarray(want)).double())
 
 
 def _err(got, want) -> float:
     """Largest |got - want| beyond rtol * |want|, in units of atol: <= 1
     means allclose(rtol=atol=TOL)."""
-    got = torch.as_tensor(np.asarray(got)).double()
-    want = torch.as_tensor(np.asarray(want)).double()
+    got, want = _pair(got, want)
     return ((got - want).abs() / (TOL + TOL * want.abs())).max().item()
+
+
+def _bf16_err(got, want, steps: float = 2.0) -> float:
+    """Largest |got - want| in units of `steps` bf16 EPS of want's largest
+    magnitude (at least 1e-3)."""
+    got, want = _pair(got, want)
+    scale = max(want.abs().max().item(), 1e-3)
+    return ((got - want).abs().max() / (steps * BF16_EPS * scale)).item()
+
+
+def _bf16_embedding_err(got, want) -> float:
+    """Largest |got - want| of unit-sphere embeddings in units of
+    EMBED_EPS EPS."""
+    got, want = _pair(got, want)
+    return ((got - want).abs().max() / (EMBED_EPS * BF16_EPS)).item()
+
+
+def _bf16_loss_err(got, want) -> float:
+    """|got - want| in units of EPS of max(|want|, 1)."""
+    got, want = _pair(got, want)
+    return ((got - want).abs() / (BF16_EPS * want.abs().clamp(min=1.0))
+            ).max().item()
+
+
+def _bf16(cfg) -> bool:
+    return getattr(cfg, "computeDtype", "float32") == "bfloat16"
+
+
+def _errs(cfg):
+    """(values, embeddings, rewards, losses) comparisons at the config's
+    dtype."""
+    if not _bf16(cfg):
+        return _err, _err, _err, _err
+    steps = 2 * cfg.representationDim ** 0.5 * EMBED_EPS
+    return (_bf16_err, _bf16_embedding_err,
+            lambda got, want: _bf16_err(got, want, steps), _bf16_loss_err)
 
 
 def _var(cfg, seed: int):
@@ -111,10 +166,11 @@ def card_against_cpu(config, seed: int = 0, card: str = "cuda") -> dict:
         return torch.randn((N,) + envs.action_space.shape,
                            generator=noise_gen)
 
+    err, _, reward_err, _ = _errs(cfg)
     errs = {"packed": 0.0, "values": 0.0, "log_probs": 0.0, "rewards": 0.0}
     eps = noise()
     action = dev_engine.init(raw_obs, eps.to(card))
-    errs["packed"] = _err(cpu_engine.init(raw_obs, eps), action)
+    errs["packed"] = err(cpu_engine.init(raw_obs, eps), action)
     for t in range(T):
         raw_obs, env_rew, done, infos = envs.step(action)
         bad = np.asarray([0.0 if "bad_transition" in i else 1.0
@@ -124,13 +180,16 @@ def card_against_cpu(config, seed: int = 0, card: str = "cuda") -> dict:
                                       eps.to(card))
         c_action, c_rew = cpu_engine.step(t, raw_obs, env_rew, done, bad,
                                           eps)
-        errs["packed"] = max(errs["packed"], _err(c_action, action),
-                             _err(c_rew, rew))
+        errs["packed"] = max(errs["packed"], err(c_action, action),
+                             reward_err(c_rew, rew))
     envs.close()
     dev_buf, host = dev_engine.buffers, cpu_engine.buffers
-    for key, name in (("values", "values"), ("log_probs", "action_log_probs"),
-                      ("rewards", "rewards")):
-        errs[key] = _err(getattr(host, name), getattr(dev_buf, name).cpu())
+    for key, name, compare in (
+            ("values", "values", err),
+            ("log_probs", "action_log_probs", err),
+            ("rewards", "rewards", reward_err)):
+        errs[key] = compare(getattr(host, name),
+                            getattr(dev_buf, name).cpu())
 
     # the same batch on both sides: the card's buffers
     with torch.no_grad():
@@ -141,7 +200,8 @@ def card_against_cpu(config, seed: int = 0, card: str = "cuda") -> dict:
         engine.compute_returns(cfg.ppoUseGAE, cfg.RLGamma, cfg.ppoGAELambda,
                                cfg.RLUseProperTimeLimits)
         batches.append(engine.device_batch())
-    errs["returns"] = _err(batches[1]["returns"], batches[0]["returns"].cpu())
+    errs["returns"] = reward_err(batches[1]["returns"],
+                                 batches[0]["returns"].cpu())
     return _update_report(cfg, [(s[2], b) for s, b in zip(sides, batches)],
                           card, seed, errs)
 
@@ -162,17 +222,28 @@ def _update_report(cfg, sides, card, seed, errs) -> dict:
             {k: float(v) for k, v in metrics.items()},
             {k: v.detach().cpu() for k, v in state.params.items()}))
     (d_metrics, d_params), (c_metrics, c_params) = updates
-    errs["losses"] = max(_err(c_metrics[k], v) for k, v in d_metrics.items())
-    n_opt = cfg.ppoEpoch * cfg.ppoNumMiniBatch
-    atol = 2 * cfg.RLLr * n_opt + 5e-5
+    loss_err = _errs(cfg)[3]
+    errs["losses"] = max(loss_err(c_metrics[k], v)
+                         for k, v in d_metrics.items())
+    report = _params_report(cfg, errs, d_params, c_params, cfg.RLLr,
+                            cfg.ppoEpoch * cfg.ppoNumMiniBatch)
+    report.update(metrics_card=d_metrics, metrics_cpu=c_metrics)
+    return report
+
+
+def _params_report(cfg, errs, d_params, c_params, lr, n_opt) -> dict:
+    """The report of `errs` (each <= 1 to pass) and the parameters after
+    `n_opt` Adam steps at `lr` on each side, with `ok`."""
+    atol = 2 * lr * n_opt + 5e-5
+    median = lr / 10 * n_opt if _bf16(cfg) else 1e-6
     diffs = torch.cat([(c_params[k] - v).abs().ravel()
                        for k, v in d_params.items()])
     report = dict(errs, param_max_diff=diffs.max().item(),
                   param_median_diff=diffs.median().item(), param_atol=atol,
-                  metrics_card=d_metrics, metrics_cpu=c_metrics)
+                  param_median_bound=median)
     report["ok"] = (max(errs.values()) <= 1.0
                     and report["param_max_diff"] <= atol
-                    and report["param_median_diff"] < 1e-6)
+                    and report["param_median_diff"] <= median)
     return report
 
 
@@ -222,8 +293,11 @@ def device_sim_card_against_cpu(config, seed: int = 0, card: str = "cuda",
     # takes the card's bank, so that what follows compares the sim, the
     # policy and the update alone
     is_arm = cfg.name == "ArmConfig"
-    errs = {"goal_bank": (_err if is_arm else _crnn_err)(
-        c_eng.goal_bank, d_eng.goal_bank.cpu())}
+    err, embedding_err, reward_err, _ = _errs(cfg)
+    if not (is_arm or _bf16(cfg)):
+        embedding_err = _crnn_err
+    errs = {"goal_bank": embedding_err(c_eng.goal_bank,
+                                       d_eng.goal_bank.cpu())}
     c_eng.goal_bank = d_eng.goal_bank.cpu()
 
     # draws made on the CPU, the same on both sides
@@ -238,13 +312,15 @@ def device_sim_card_against_cpu(config, seed: int = 0, card: str = "cuda",
                        != d_batch["obs"]["image"].cpu()).sum()),
         "poses" if is_arm else "occupancy": int(
             (c_batch["obs"][exact] != d_batch["obs"][exact].cpu()).sum())}
-    errs["image_feats"] = _err(c_batch["obs"]["image_feat"],
-                               d_batch["obs"]["image_feat"].cpu())
-    for key in ("value_preds", "old_log_probs", "returns"):
-        errs[key] = _err(c_batch[key], d_batch[key].cpu())
-    errs["rewards"] = _err(c_eng.rewards, d_eng.rewards.cpu())
-    errs["rms"] = max(_err(c, d.cpu()) for c, d in zip(c_rms, d_rms))
-    errs["episode_rewards"] = _err(c_raw, d_raw.cpu())
+    errs["image_feats"] = embedding_err(c_batch["obs"]["image_feat"],
+                                        d_batch["obs"]["image_feat"].cpu())
+    for key in ("value_preds", "old_log_probs"):
+        errs[key] = err(c_batch[key], d_batch[key].cpu())
+    errs["returns"] = reward_err(c_batch["returns"],
+                                 d_batch["returns"].cpu())
+    errs["rewards"] = reward_err(c_eng.rewards, d_eng.rewards.cpu())
+    errs["rms"] = max(reward_err(c, d.cpu()) for c, d in zip(c_rms, d_rms))
+    errs["episode_rewards"] = reward_err(c_raw, d_raw.cpu())
 
     intent = torch.arange(N) % cfg.taskNum
     edraws = c_eng.draw_eval()
@@ -254,8 +330,8 @@ def device_sim_card_against_cpu(config, seed: int = 0, card: str = "cuda",
         intent, edraws, actions=d_eng.eval_actions.cpu())
     mismatch["success"] = int((c_succ != d_succ.cpu()).sum()
                               + (c_counts != d_counts.cpu()).sum())
-    errs["eval_actions"] = _err(c_eng.eval_actions, d_eng.eval_actions.cpu())
-    errs["eval_rewards"] = _err(c_sum, d_sum.cpu())
+    errs["eval_actions"] = err(c_eng.eval_actions, d_eng.eval_actions.cpu())
+    errs["eval_rewards"] = reward_err(c_sum, d_sum.cpu())
 
     # one update of the card's batch on both sides
     c_batch = {"obs": {k: v.cpu() for k, v in d_batch["obs"].items()},
@@ -388,6 +464,7 @@ def wrapped_card_against_cpu(config, seed: int = 0, card: str = "cuda"
     trainer.rollout_wrapped(envs, rollouts, noise=noise.to(card))
     envs.close()
 
+    err, embedding_err, _, _ = _errs(cfg)
     errs = {"actions": 0.0, "log_probs": 0.0, "values": 0.0, "hx": 0.0,
             "image_feat": 0.0}
     with torch.no_grad():
@@ -406,7 +483,8 @@ def wrapped_card_against_cpu(config, seed: int = 0, card: str = "cuda"
                      rollouts.recurrent_hidden_states[t + 1]),
                     ("image_feat", var.encode_image(obs["image"])[1],
                      obs["image_feat"])):
-                errs[key] = max(errs[key], _err(got, want))
+                errs[key] = max(errs[key], (embedding_err if key ==
+                                            "image_feat" else err)(got, want))
         next_value = get_value(
             trainer.policy,
             {k: trainer._to_device(v[-1]) for k, v in rollouts.obs.items()},
@@ -421,3 +499,46 @@ def wrapped_card_against_cpu(config, seed: int = 0, card: str = "cuda"
              (PPO(cpu_policy, PPOConfig.from_config(cfg)),
               rollouts.device_batch())]
     return _update_report(cfg, sides, card, seed, errs)
+
+
+def pretext_card_against_cpu(config, seed: int = 0, card: str = "cuda"
+                             ) -> dict:
+    """One pretext step (`_train_step_indexed`: the gathers, both sounds'
+    MFCC through config.audioBackend, the encoders at config.computeDtype,
+    the triplet loss, L2 Adam) on the card and on the CPU from the same
+    initial parameters (drawn on the CPU from `seed`), clip bank, images
+    and indices, at config.pretextTrainBatchSize: the loss, and the
+    parameters at the Adam-step tolerance. Returns the report with `ok`."""
+    from var_tpu_torch.data.audio_store import AudioStore
+    from var_tpu_torch.device import resolve_device
+    from var_tpu_torch.train.pretext import PretextTrainer
+
+    cfg = config
+    resolve_device(card)
+    audio = AudioStore(cfg)
+    audio.loadData()
+    bank, lengths, ranges = audio.build_clip_bank()
+    B = cfg.pretextTrainBatchSize
+    rng = np.random.RandomState(seed)
+    images = rng.randint(0, 256, (B,) + tuple(cfg.img_dim)).astype(np.uint8)
+    pos = audio.sample_clip_ids(rng.randint(0, len(ranges), B), ranges, rng)
+    neg = audio.sample_clip_ids(rng.randint(0, len(ranges), B), ranges, rng)
+    idx = [torch.from_numpy(a.astype(bool if a.dtype == bool else np.int64))
+           for a in (np.arange(B), *pos, *neg)]
+    sides = []  # (loss, params): the card, then the CPU
+    for dev in (card, "cpu"):
+        trainer = PretextTrainer(cfg, device=dev, audio=audio)
+        trainer._ensure_audio()
+        trainer.init_model(seed)
+        trainer.setup_optimizer(steps_per_epoch=1)
+        put = {"images": images, "wav": bank, "len": lengths}
+        loss = trainer._train_step_indexed(
+            {k: torch.from_numpy(v).to(dev) for k, v in put.items()},
+            *(a.to(dev) for a in idx))
+        sides.append((float(loss), {k: v.detach().cpu() for k, v in
+                                    trainer.model.state_dict().items()}))
+    (d_loss, d_params), (c_loss, c_params) = sides
+    report = _params_report(cfg, {"loss": _errs(cfg)[3](c_loss, d_loss)},
+                            d_params, c_params, cfg.pretextLR, 1)
+    report.update(loss_card=d_loss, loss_cpu=c_loss)
+    return report

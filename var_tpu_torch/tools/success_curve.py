@@ -29,7 +29,7 @@ from var_tpu_torch.tools.e2e_run import binom_ci95, build_config
 # the snapshot's knobs that shape the nets and the episode protocol
 SNAPSHOT_KNOBS = ("pretextModelLoadDir", "pretextEpoch", "representationDim",
                   "RLRecurrentSize", "RLRecurrentInputSize", "RLEnvMaxSteps",
-                  "RLDeterministic")
+                  "RLDeterministic", "computeDtype")
 
 
 def list_checkpoints(rl_dir):
