@@ -10,7 +10,8 @@ Phases; any failure exits non-zero and no phase is skipped:
    sim's raycast; csrc/shmbuf.cpp, ShmemVecEnv's shared memory) with g++,
    all started together, and prints the build times;
 3. each kernel against its plain PyTorch version on the card, at the arm
-   path's shape (128, 101, 257), the ai2thor path's (128, 601, 257), the
+   path's shape (128, 101, 257), a dp=2 rank's share of it (64, 101, 257),
+   the ai2thor path's (128, 601, 257), the
    pos + neg batch (256, 601, 257), a short last unit (8, 601, 257) and
    the n_fft-1024 presets, in both input layouts (the gemm STFT's view,
    contiguous), at rtol = atol = 1e-4, with NaN and inf rows; then its
@@ -186,6 +187,20 @@ JAX package's knob) on both profiles at full width:
    tolerances, tests/test_torch_bf16.py's): one pretext step at batch 16
    and one fused rollout of 10 steps at 8 envs with its PPO update.
 
+Phase 35 runs meshShape data parallelism (var_tpu_torch/parallel/):
+35. arm pretext (one epoch of 6 steps at batch 128 on phase 4's triplets
+   through the kernel), the arm's fused host path (one PPO update at 8
+   envs x 100 steps) and each profile's device sim (one update at 64
+   envs), each from phase 4's or 15's VAR: at meshShape={'dp': 1}
+   through the entry points, one rank on an NCCL group, held against the
+   unsharded phases 4, 7, 11 and 17 of this call (the first epoch's loss,
+   the first update's progress row at rtol = atol = 1e-4 and its
+   checkpoint within 2 lr a step + 5e-5); then at dp=2 on this card (two
+   spawned ranks on cuda:0 over gloo, since NCCL takes one rank a card),
+   held against dp=1 the same way; each dp=2 rank's kernel launches (2 a
+   step, every one at (64, 101, 257)) and the kernel against its plain
+   version on the rank's first input; wall time and rate of each.
+
 It then stops the processes it started (the forkserver and the resource
 tracker are stopped and waited for; a worker left running fails the run;
 this runs on failure too), prints the card's name and power limit as
@@ -244,11 +259,12 @@ def peaks(name: str):
 # pos + neg; 8 leaves a short last unit of rows), and the n_fft-1024
 # presets (NSynth/UrbanSound)
 CASES = (("main", "GoogleCommand", 128, 100),
+         ("main dp=2 rank", "GoogleCommand", 64, 100),
          ("ai2thor", "FSC", 128, 600),
          ("ai2thor pos+neg", "FSC", 256, 600),
          ("ai2thor short unit", "FSC", 8, 600),
          ("n_fft 1024", "NSynth", 8, 100))
-TIMED_PLAIN = ("main", "ai2thor")  # the paths' shapes
+TIMED_PLAIN = ("main", "main dp=2 rank", "ai2thor")  # the paths' shapes
 COLD_BYTES = 100e6  # rotating inputs this large cannot stay in the 50 MB L2
 _spin = {}
 
@@ -2266,6 +2282,231 @@ def bf16_phase(torch, mld):
         torch.cuda.empty_cache()
 
 
+# -- phase 35: meshShape data parallelism ------------------------------------
+
+MESH_DIR = RUN_DIR / "mesh"
+
+
+def _mesh_argv(kind, env, out):
+    """Phase 35's entry-point arguments: each path at phase 4's, 7's, 11's
+    or 17's width and seed, one epoch or one PPO update, into `out`."""
+    prof = PROFILES[env]
+    if kind == "pretext":
+        return ["--env", env, "--set",
+                f'pretextDataDir=["{RUN_DIR / env / "data"}"]',
+                f'pretextModelSaveDir="{out}"', "pretextCollection=False",
+                'audioBackend="pallas"', "pretextModelFineTune=False",
+                'pretextDataset="VARDataset"', 'vecEnvBackend="dummy"',
+                "pretextEpoch=1", "pretextModelSaveInterval=1"]
+    envs = DS_ENVS if kind == "devsim" else 8
+    argv = ["--env", env, "--set",
+            f'pretextModelLoadDir="{RUN_DIR / env / "model" / "4"}"',
+            f'RLModelSaveDir="{out}"', "RLTrain=True",
+            "RLModelFineTune=False", 'vecEnvBackend="dummy"',
+            f"RLNumEnvs={envs}", f"RLTotalSteps={envs * prof['steps']}",
+            "RLModelSaveInterval=1", "RLLogInterval=1"]
+    if kind == "devsim":
+        argv.append("RLDeviceSimRollout=True")
+    return argv
+
+
+def _mesh_rank(kind, env, argv, out, device):
+    """One rank of phase 35's dp=2 runs, spawned by parallel/mesh.py::
+    launch with the card named (cuda:0) and gloo: the entry point's rank
+    function; then the rank's kernel launches, its wall and rates, and the
+    kernel held against its plain version on the first input the path gave
+    it, into out/rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+
+    from var_tpu_torch import pretext as pretext_entry
+    from var_tpu_torch import rl as rl_entry
+    from var_tpu_torch.cli import build_config, parse_args
+    from var_tpu_torch.ops import audio
+    from var_tpu_torch.ops import mel_log_dct as mld
+
+    args = parse_args(argv)
+    seen = {}
+    undo = _capture_stft(audio, seen)
+    mld.mel_log_dct.launches = 0
+    t0 = time.perf_counter()
+    try:
+        if kind == "pretext":
+            trainer = pretext_entry._rank(build_config(args, "pretext"),
+                                          device=device)
+            stats = trainer.epoch_stats
+        else:
+            trainer = rl_entry._rank(build_config(args, "RL"), env,
+                                     device=device)
+            stats = trainer.update_stats
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    report = {"launches": mld.mel_log_dct.launches,
+              "wall": time.perf_counter() - t0, "stats": stats,
+              "shapes": sorted(set(seen.get("shapes", [])))}
+    if 257 in seen:
+        power, params = seen[257]
+        with torch.no_grad():
+            got = mld.mel_log_dct(power, params)
+            want = mld.mel_log_dct_reference(power, params)
+        report["kernel_ok"] = bool(torch.allclose(got, want, rtol=RTOL,
+                                                  atol=ATOL))
+        report["max_abs_err"] = (got - want).abs().max().item()
+    with open(Path(out) / f"rank{dist.get_rank()}.json", "w") as f:
+        json.dump(report, f)
+
+
+def _mesh_compare(torch, what, got_dir, want_dir, label, steps, lr,
+                  row_keys):
+    """Holds a mesh run's first progress row and checkpoint against
+    another run's: the row at rtol = atol = 1e-4, the parameters within
+    2 x lr a step + 5e-5 and with a median gap below 1e-6. Adam moves every
+    weight by about lr a step whatever its gradient, so the largest gap
+    alone would pass a gradient that was never all-reduced; the median
+    does not. Returns the largest parameter gap."""
+    from var_tpu_torch.train.checkpoint import load_checkpoint
+
+    rows = []
+    for d in (got_dir, want_dir):
+        with open(Path(d) / "progress.csv") as f:
+            rows.append(list(csv.DictReader(f))[0])
+    for k in row_keys:
+        a, b = float(rows[0][k]), float(rows[1][k])
+        if not math.isclose(a, b, rel_tol=RTOL, abs_tol=ATOL):
+            fail(f"{what}: {k} {a} against {b}")
+    p = [load_checkpoint(str(Path(d) / label))["params"]
+         for d in (got_dir, want_dir)]
+    gaps = torch.cat([(p[0][k].float() - v.float()).abs().ravel()
+                      for k, v in p[1].items()])
+    bound = 2 * lr * steps + 5e-5
+    print(f"{what}: first row {[rows[0][k] for k in row_keys]} against "
+          f"{[rows[1][k] for k in row_keys]}; parameters max gap "
+          f"{gaps.max().item():.3e} (bound {bound:.3e}), median "
+          f"{gaps.median().item():.3e}", flush=True)
+    if gaps.max().item() > bound:
+        fail(f"{what}: parameters beyond the Adam-step bound")
+    if gaps.median().item() >= PARAM_MEDIAN:
+        fail(f"{what}: median parameter gap {gaps.median().item():.3e} "
+             f"not below {PARAM_MEDIAN:g}")
+    return gaps.max().item()
+
+
+# The median parameter gap between two runs of one computation (as
+# tests/test_torch_parallel.py holds it): a missing or partial all-reduce
+# moves most weights by about lr, far above it.
+PARAM_MEDIAN = 1e-6
+
+RL_ROW = ("loss/value_loss", "loss/policy_loss", "loss/policy_entropy",
+          "eprewmean")
+
+
+def mesh_phase(torch, mld, line):
+    """Phase 35: arm pretext, each profile's device sim and the arm's fused
+    host path under meshShape: at dp=1 on NCCL through the entry points,
+    held against the unsharded phases 4, 7, 11 and 17 of this call; at dp=2
+    on this one card over gloo (two spawned ranks on cuda:0), held against
+    dp=1; each rank's kernel on its first input (64, 101, 257) against the
+    plain version."""
+    from var_tpu_torch.config import main_config
+    from var_tpu_torch.parallel.mesh import launch
+    from var_tpu_torch.pretext import main as pretext_main
+    from var_tpu_torch.rl import main as rl_main
+
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    runs = (("pretext", "arms"), ("fused", "arms"), ("devsim", "arms"),
+            ("devsim", "ai2thor"))
+    unsharded = {("pretext", "arms"): RUN_DIR / "arms" / "model",
+                 ("fused", "arms"): RUN_DIR / "arms" / "rl_model",
+                 ("devsim", "arms"): RUN_DIR / "arms" / "rl_devsim",
+                 ("devsim", "ai2thor"): RUN_DIR / "ai2thor" / "rl_devsim"}
+    for kind, env in runs:
+        tag = f"{env} {kind}"
+        cfg = main_config(env=env)
+        lr = cfg.pretextLR if kind == "pretext" else cfg.RLLr
+        opt_steps = (6 if kind == "pretext"
+                     else cfg.ppoEpoch * cfg.ppoNumMiniBatch)
+        out = {dp: MESH_DIR / f"{env}_{kind}_dp{dp}" for dp in (1, 2)}
+        # dp=1: the entry point, one rank in this process on NCCL
+        mld.mel_log_dct.launches = 0
+        t0 = time.perf_counter()
+        main = pretext_main if kind == "pretext" else rl_main
+        trainer = main(_mesh_argv(kind, env, out[1])
+                       + ["meshShape={'dp': 1}"])
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        LAUNCHES[f"mesh dp=1 {tag}"] = mld.mel_log_dct.launches
+        if trainer.mesh is None or trainer.mesh.backend != "nccl":
+            fail(f"{tag}: the dp=1 run did not run on an NCCL group")
+        stats = (trainer.epoch_stats if kind == "pretext"
+                 else trainer.update_stats)
+        steps = trainer.step if kind == "pretext" else None
+        # the ranks share this card: hand back what this process holds
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        # dp=2: two ranks on this card over gloo
+        out[2].mkdir(parents=True)
+        t0 = time.perf_counter()
+        launch(_mesh_rank, (kind, env, _mesh_argv(kind, env, out[2])
+                            + ["meshShape={'dp': 2}"], str(out[2])), 2,
+               device="cuda:0", backend="gloo")
+        wall2 = time.perf_counter() - t0
+        reports = [json.loads((out[2] / f"rank{r}.json").read_text())
+                   for r in range(2)]
+        LAUNCHES[f"mesh dp=2 {tag}"] = sum(r["launches"] for r in reports)
+        if kind == "pretext":
+            losses = {}
+            for name, d in (("unsharded", unsharded[(kind, env)]),
+                            ("dp=1", out[1]), ("dp=2", out[2])):
+                with open(Path(d) / "progress.csv") as f:
+                    losses[name] = float(f.read().split()[1])
+            print(f"mesh [{tag}]: epoch 0 loss {losses}", flush=True)
+            for name in ("dp=1", "dp=2"):
+                if not math.isclose(losses[name], losses["unsharded"],
+                                    rel_tol=RTOL, abs_tol=ATOL):
+                    fail(f"{tag}: {name} epoch loss against phase 4's")
+            _mesh_compare(torch, f"mesh [{tag}] dp=2 against dp=1", out[2],
+                          out[1], "0", opt_steps, lr, ("avg_loss",))
+            for r in reports:
+                print(f"mesh [{tag}] dp=2 rank: {r['launches']} kernel "
+                      f"launches over {steps} steps at {r['shapes']}; the "
+                      f"kernel on its first input: max abs err "
+                      f"{r['max_abs_err']:.3e}", flush=True)
+                if r["launches"] != 2 * steps or not r["kernel_ok"] or \
+                        [tuple(s) for s in r["shapes"]] != [(64, 101, 257)]:
+                    fail(f"{tag}: a dp=2 rank's kernel launches, shapes or "
+                         "agreement")
+            if LAUNCHES[f"mesh dp=1 {tag}"] != 2 * steps:
+                fail(f"{tag}: dp=1 expected 2 kernel launches a step")
+            rate1 = sum(n for n, _ in stats) / wall1
+            rate2 = sum(n for n, _ in stats) / wall2
+            unit = "triplets/s (wall, set-up included)"
+        else:
+            _mesh_compare(torch, f"mesh [{tag}] dp=1 against the unsharded "
+                          "phase", out[1], unsharded[(kind, env)], "00000",
+                          opt_steps, lr, RL_ROW)
+            _mesh_compare(torch, f"mesh [{tag}] dp=2 against dp=1", out[2],
+                          out[1], "00000", opt_steps, lr, RL_ROW)
+            if LAUNCHES[f"mesh dp=1 {tag}"] or LAUNCHES[f"mesh dp=2 {tag}"]:
+                fail(f"{tag}: the RL paths launch no mel_log_dct")
+            n = stats[0][0]
+            rate1, rate2 = n / wall1, n / wall2
+            unit = "env-steps/s (wall, set-up included)"
+        # the global items over each rank's timed epoch or update (first
+        # call included), beside dp=1's own
+        ranked = [sum(n for n, _ in r["stats"])
+                  / sum(t for _, t in r["stats"]) for r in reports]
+        timed1 = sum(n for n, _ in stats) / sum(t for _, t in stats)
+        print(f"mesh [{tag}]: dp=1 (NCCL) {wall1:.2f} s, {rate1:.1f} "
+              f"{unit}; dp=2 (gloo, one card) {wall2:.2f} s, {rate2:.1f}; "
+              f"rank walls {[round(r['wall'], 2) for r in reports]}; over "
+              f"the timed epoch or update: dp=1 {timed1:.1f}, dp=2 ranks "
+              f"{[round(x, 1) for x in ranked]}; {line}", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -2326,6 +2567,9 @@ def main():
     t0 = time.perf_counter()
     bf16_phase(torch, mld)
     print(f"phase 34 in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    mesh_phase(torch, mld, line)
+    print(f"phase 35 in {time.perf_counter() - t0:.1f} s", flush=True)
 
     stop_children()  # before the result: nothing outlives the script
     kernel["launches_by_path"] = dict(LAUNCHES)

@@ -56,7 +56,7 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 CRNN_TOL = dict(rtol=1e-3, atol=2e-4)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """Several test workers share the machine; one torch thread each."""
     n = torch.get_num_threads()

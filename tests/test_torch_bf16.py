@@ -94,7 +94,7 @@ POLICY_CONVERT = {"arms": arm_policy_state_dict,
                   "ai2thor": ai2thor_policy_state_dict}
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """Several test workers share the machine; one torch thread each."""
     n = torch.get_num_threads()

@@ -86,7 +86,7 @@ ONE_CLIP_PER_CLASS = {
     "size": {"GoogleCommand": [1, 1, 1, 1]}, "train_test": "train"}
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """The tier-1 run puts several test workers on one machine; torch's
     default of a thread per core in each of them oversubscribes the cores,
@@ -503,10 +503,16 @@ def test_eval_trajectory_matches_host_replay(engines):
 
 
 def test_refusals_name_their_reason(engines):
+    """The env-axis mesh is ported (tests/test_torch_parallel.py holds it):
+    an env count that does not divide by the mesh's dp is refused, as
+    XLA's uneven shard is, naming dp."""
+    from var_tpu_torch.parallel.mesh import Mesh
+
     _, tcfg, _, _, teng = engines
+    uneven = Mesh({"dp": 3}, 0, 3, None, 0, torch.device("cpu"), None)
     for engine in (DeviceSimEngine, GridDeviceSimEngine):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*parallelism"):
-            engine(teng.var_model, teng.policy, tcfg, T, N, mesh={"dp": 2})
+        with pytest.raises(ValueError, match="RLNumEnvs 4 .*dp=3"):
+            engine(teng.var_model, teng.policy, tcfg, T, N, mesh=uneven)
     _, sound = _configs(RLRewardSoundSound=True)
     with pytest.raises(NotImplementedError, match="RLRewardSoundSound"):
         DeviceSimEngine(teng.var_model, teng.policy, sound, T, N)

@@ -144,6 +144,7 @@ def test_grid_collect_draws(grid):
     _, tcfg, _, tbank = grid
     n, samples = DRAWS, 64
     eng = _engine_stub(GridDeviceSimEngine, generator=_gen(2), N=n,
+                       N_global=n, mesh=None,
                        device=torch.device("cpu"), bank=tbank,
                        task_list=[None] * 4, T=1, A=8,
                        goal_bank=torch.zeros(4, samples, 3))
@@ -190,7 +191,8 @@ def test_ppo_permutations_match_jax(n_envs):
     permutations (4! or, for 8 envs, the first three positions)."""
     epochs = 4
     stub = types.SimpleNamespace(cfg=types.SimpleNamespace(ppo_epoch=epochs),
-                                 model=types.SimpleNamespace(recurrent=True))
+                                 model=types.SimpleNamespace(recurrent=True),
+                                 mesh=None)
     batch = {"returns": torch.zeros(3, n_envs)}
     g = _gen(4)
     port = torch.cat([tppo.PPO.draw_perms(stub, batch, g)
@@ -236,6 +238,7 @@ def test_arm_collect_draws(arm):
     _, tk = arm
     n, clips = DRAWS, 16
     eng = _engine_stub(DeviceSimEngine, generator=_gen(6), N=n,
+                       N_global=n, mesh=None,
                        device=torch.device("cpu"), k=tk, T=1, A=2,
                        config=types.SimpleNamespace(taskNum=4),
                        goal_bank=torch.zeros(4, clips, 3))

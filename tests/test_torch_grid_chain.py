@@ -73,13 +73,19 @@ MOMENT_MEDIAN_RTOL, MOMENT_SCALE = 1e-2, 0.02
 FREE_ROLLOUT_ATOL = 1e-3
 
 
-@pytest.fixture(autouse=True)
-def _small(monkeypatch):
-    monkeypatch.setenv("VAR_TPU_SYNTH_CLIPS", "3")
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread per test worker, the module's fixtures included:
+    the tier-1 run puts several workers on one machine."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def _small(monkeypatch):
+    monkeypatch.setenv("VAR_TPU_SYNTH_CLIPS", "3")
 
 
 @pytest.fixture(scope="module")

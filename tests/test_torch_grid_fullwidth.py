@@ -95,9 +95,10 @@ RECIPE = dict(RLLr=6e-5, RLLrDecay="linear", RLTotalSteps=10_000_000,
 WIDTHS = [(8, 8), pytest.param((64, 64), marks=pytest.mark.slow)]
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _threads():
-    """Two torch threads per test worker: the machine is shared."""
+    """Two torch threads per test worker, the module's fixtures
+    included: the machine is shared."""
     n = torch.get_num_threads()
     torch.set_num_threads(2)
     yield
@@ -151,16 +152,25 @@ def trained_var(tmp_path_factory):
     return build_pretext_model(jcfg), params, jaudio, taudio
 
 
+_JAX_DRAWS = {}  # JAX's initial draws, made once per key in this module
+
+
 def _policies(jcfg, tcfg, n):
-    """JAX's policy from PRNGKey(RLEnvSeed) and the port's twin."""
-    jpol = jpolicy.build_policy(jcfg, JDiscrete(A))
-    obs = {"image": jnp.zeros((n, 3, 96, 96), jnp.uint8),
-           "occupancy": jnp.zeros((n, 1, 9, 9), jnp.uint8),
-           "image_feat": jnp.zeros((n, 3)),
-           "goal_sound_feat": jnp.zeros((n, 3))}
-    params = jax.jit(jpol.init, static_argnums=4)(
-        jax.random.PRNGKey(jcfg.RLEnvSeed), obs,
-        jnp.zeros((n, jcfg.RLRecurrentSize)), jnp.ones((n, 1)), 1)["params"]
+    """JAX's policy from PRNGKey(RLEnvSeed) and a fresh port twin. JAX's
+    draw is made once per (seed, envs): the file's configs differ in no
+    knob the policy reads."""
+    key = ("policy", int(jcfg.RLEnvSeed), n)
+    if key not in _JAX_DRAWS:
+        jpol = jpolicy.build_policy(jcfg, JDiscrete(A))
+        obs = {"image": jnp.zeros((n, 3, 96, 96), jnp.uint8),
+               "occupancy": jnp.zeros((n, 1, 9, 9), jnp.uint8),
+               "image_feat": jnp.zeros((n, 3)),
+               "goal_sound_feat": jnp.zeros((n, 3))}
+        _JAX_DRAWS[key] = jpol, jax.jit(jpol.init, static_argnums=4)(
+            jax.random.PRNGKey(jcfg.RLEnvSeed), obs,
+            jnp.zeros((n, jcfg.RLRecurrentSize)), jnp.ones((n, 1)),
+            1)["params"]
+    jpol, params = _JAX_DRAWS[key]
     tpol = build_policy(tcfg, Discrete(A))
     tpol.load_state_dict(ai2thor_policy_state_dict(
         jax.tree_util.tree_map(np.asarray, params)))
@@ -529,6 +539,31 @@ def test_fused_host_cycle_matches_jax(trained_var, monkeypatch):
 # --updates PPO updates on the CPU from the port's VAR checkpoint directory
 # (e2e_run's WORK/var_model/59; JAX gets it converted back), and writes
 # OUT_DIR/progress.csv, one row per update.
+#
+#     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_grid_fullwidth.py \
+#         train-var collect|jax|port|compare WORK [--epochs 60] [--var-key 977]
+#
+# trains the grid recipe's VAR (e2e_run's knobs: quotas [800, 800, 1600,
+# 1600, 3200], batch 128, 60 epochs, the LR decayed at epochs 30 and 50)
+# on the CPU from JAX's draw at PRNGKey(--var-key), once per package, on
+# one collection: `collect` gathers it with the port's collector into
+# WORK/triplets (the shards are byte for byte JAX's); `jax` and `port`
+# (two processes, side by side) each train and write, after every epoch,
+# a port checkpoint directory WORK/<package>/var_model/<epoch> (JAX's
+# through convert.py::ai2thor_state_dict; the port's with its Adam state;
+# JAX's own with its optax state under WORK/jax/orbax/<epoch>) and a row
+# of WORK/<package>/epochs.csv (the mean loss, every step's loss, the LR,
+# the seconds); `compare` joins the two CSVs and the checkpoints into
+# WORK/var_epochs.csv: each epoch's losses at the CRNN's tolerance and the
+# parameters within 2 x the LR summed + 5e-5 (A2's bounds,
+# tests/test_torch_grid_var_epochs.py). --epochs N < 60 stops both runs
+# at N epochs of the same schedule. `noise` runs the port's first
+# --epochs steps (here a step count) from JAX's draw moved by one ulp per
+# weight, into WORK/port_ulp/steps.csv: how fast a last-bit difference
+# grows. `threads` runs them from the draw itself at one torch thread
+# (the runs above take 4), into WORK/port_1thread/steps.csv: another
+# order of summation in the ops of every step, the like-for-like floor
+# the two packages' gap is read against.
 
 
 def _jax_params_from_port(sd, template):
@@ -553,15 +588,24 @@ def _jax_params_from_port(sd, template):
     return jax.tree_util.tree_unflatten(treedef, out)
 
 
+def _jax_var_draw(jcfg, var_key):
+    """JAX's grid VAR variables from PRNGKey(var_key), made once per key."""
+    from var_tpu.models.encoders import init_pretext_params
+
+    key = ("var", var_key)
+    if key not in _JAX_DRAWS:
+        _JAX_DRAWS[key] = init_pretext_params(
+            build_pretext_model(jcfg), jcfg, jax.random.PRNGKey(var_key))
+    return _JAX_DRAWS[key]
+
+
 def write_jax_draws(out_dir, var_key=977, policy_key=349):
     """JAX's initial draws of the grid VAR and of the policy, converted,
     as the port's checkpoint directories (see the comment above)."""
-    from var_tpu.models.encoders import init_pretext_params
     from var_tpu_torch.train.checkpoint import save_checkpoint
 
     jcfg, tcfg = _configs(RLEnvSeed=policy_key)
-    params = init_pretext_params(build_pretext_model(jcfg), jcfg,
-                                 jax.random.PRNGKey(var_key))["params"]
+    params = _jax_var_draw(jcfg, var_key)["params"]
     var_dir = os.path.join(out_dir, f"jax_var_{var_key}")
     save_checkpoint(var_dir, {"params": ai2thor_state_dict(
         jax.tree_util.tree_map(np.asarray, params))})
@@ -575,7 +619,6 @@ def test_jax_draws_start_the_port_through_its_knobs(tmp_path):
     """The written draws load through the port's own fine-tune knobs and
     equal JAX's draws: the VAR's forward pass at the CRNN's tolerance, the
     policy's parameters exactly."""
-    from var_tpu.models.encoders import init_pretext_params
     from var_tpu_torch.train.checkpoint import load_checkpoint
     from var_tpu_torch.train.pretext import PretextTrainer
 
@@ -584,7 +627,7 @@ def test_jax_draws_start_the_port_through_its_knobs(tmp_path):
                           pretextModelLoadDir=var_dir)
     tvar = PretextTrainer(tcfg, device="cpu").loadPretextModel().eval()
     jmodel = build_pretext_model(jcfg)
-    jvars = init_pretext_params(jmodel, jcfg, jax.random.PRNGKey(3))
+    jvars = _jax_var_draw(jcfg, 3)
     rng = np.random.RandomState(0)
     img = rng.rand(2, 3, 96, 96).astype(np.float32)
     snd = rng.randn(2, 1, 100, 40).astype(np.float32)
@@ -638,6 +681,232 @@ def _log_run(package, var_dir, out_dir, envs, updates, seed,
     trainer.trainRL(total_steps=updates * envs * T)
 
 
+def _var_recipe(work, epochs):
+    """The grid recipe's pretext knobs (tools/e2e_run.py::build_config with
+    --collect-per-class 800 --var-epochs 60 and the recipe's quotas), for
+    both packages; `epochs` < 60 stops the run early on the same
+    schedule."""
+    from var_tpu_torch.tools.e2e_run import build_config
+
+    tcfg = build_config("ai2thor", work, 10_000_000, 6e-5, 64, 800, 60,
+                        extra_set=["pretextCollectNum=[800,800,1600,1600,3200]"])
+    knobs = {k: getattr(tcfg, k) for k in (
+        "pretextDataDir", "pretextCollectNum", "pretextDataEpisode",
+        "pretextEpoch", "pretextLRDecayEpoch", "pretextDataset",
+        "pretextTrainBatchSize", "pretextLR", "pretextLRDecayGamma")}
+    knobs.update(pretextModelFineTune=False, pretextModelSaveInterval=1,
+                 vecEnvBackend="dummy")
+    jcfg, tcfg = _configs(**knobs)
+    tcfg.override(audioBackend="pallas")
+    return jcfg, tcfg, epochs
+
+
+def _write_epoch_row(path, row):
+    import csv
+
+    new = not os.path.exists(path)
+    with open(path, "a", newline="") as f:
+        w = csv.writer(f)
+        if new:
+            w.writerow(["epoch", "mean_loss", "lr_first", "lr_last",
+                        "seconds", "step_losses"])
+        w.writerow(row)
+
+
+class _Stop(Exception):
+    pass
+
+
+def noise_floor(work, steps=30, var_key=977, seed=0, how="ulp"):
+    """The port's first `steps` steps of the recipe's VAR training from
+    JAX's draw: with `how` 'ulp', every initial weight moved by one
+    float32 ulp (a seeded sign per weight), into WORK/port_ulp/; with
+    'threads', the draw itself at one torch thread, which sums in another
+    order in the ops of every step, into WORK/port_1thread/. How fast
+    such a difference grows through the training is what the two
+    packages' gap is read against. Writes <dir>/steps.csv (step, loss)."""
+    import csv
+
+    jcfg, tcfg, _ = _var_recipe(work, 1)
+    from var_tpu.models.encoders import init_pretext_params
+
+    draw = ai2thor_state_dict(jax.tree_util.tree_map(
+        np.asarray, init_pretext_params(build_pretext_model(jcfg), jcfg,
+                                        jax.random.PRNGKey(var_key))["params"]))
+    if how == "ulp":
+        g = torch.Generator().manual_seed(seed)
+        for k, v in draw.items():
+            sign = torch.randint(0, 2, v.shape, generator=g) * 2 - 1
+            bits = v.view(torch.int32) + sign.to(torch.int32)
+            draw[k] = torch.where(v == 0, v, bits.view(torch.float32))
+    else:
+        torch.set_num_threads(1)
+    out = os.path.join(work, "port_ulp" if how == "ulp" else "port_1thread")
+    os.makedirs(out, exist_ok=True)
+    tcfg.override(pretextModelSaveDir=out, pretextModelSaveInterval=10 ** 6)
+    tr = tpretext.PretextTrainer(tcfg, device="cpu")
+    tr._ensure_audio()
+    tr.model = VARPretextNet(3, "ai2thor")
+    tr.model.load_state_dict(draw)
+    losses, optimize = [], tr._optimize
+
+    def record(*args, **kw):
+        loss = optimize(*args, **kw)
+        losses.append(float(loss))
+        with open(os.path.join(out, "steps.csv"), "w", newline="") as f:
+            csv.writer(f).writerows([["step", "loss"]] + list(
+                enumerate(losses)))
+        if len(losses) >= steps:
+            raise _Stop
+        return loss
+
+    tr._optimize = record
+    try:
+        tr.trainRepresentation(epoch=1, log_csv=False)
+    except _Stop:
+        pass
+    return losses
+
+
+def train_var(package, work, epochs=60, var_key=977):
+    """One package's run of the recipe's VAR training (see the comment
+    above the helpers)."""
+    import time
+
+    from var_tpu_torch.train.checkpoint import save_checkpoint
+
+    jcfg, tcfg, epochs = _var_recipe(work, epochs)
+    if package == "collect":
+        tpretext.PretextTrainer(tcfg, device="cpu").collectPretextData()
+        return
+    out = os.path.join(work, package)
+    os.makedirs(out, exist_ok=True)
+    csv_path = os.path.join(out, "epochs.csv")
+    if os.path.exists(csv_path):
+        os.remove(csv_path)
+    from var_tpu.models.encoders import init_pretext_params
+
+    draw = jax.tree_util.tree_map(np.asarray, init_pretext_params(
+        build_pretext_model(jcfg), jcfg,
+        jax.random.PRNGKey(var_key))["params"])
+    if package == "jax":
+        jcfg.override(pretextModelSaveDir=os.path.join(out, "orbax"))
+        tr = jpretext.PretextTrainer(jcfg)
+        tr._ensure_audio()
+        tr.variables = {"params": jax.tree_util.tree_map(jnp.asarray, draw)}
+        sched = [None]
+        run = tr._run_epoch_indexed
+
+        def record(ds, bank, batch_size, epoch):
+            steps = -(-len(ds) // batch_size)
+            if sched[0] is None:
+                sched[0] = jpretext.multistep_lr(
+                    jcfg.pretextLR, jcfg.pretextLRDecayEpoch,
+                    jcfg.pretextLRDecayGamma, steps)
+            t0 = time.time()
+            losses, n = run(ds, bank, batch_size, epoch)
+            dt = time.time() - t0
+            count = int(tr.state.opt_state[-1].count)
+            params = jax.tree_util.tree_map(np.asarray, tr.state.params)
+            save_checkpoint(os.path.join(out, "var_model", str(epoch)),
+                            {"params": ai2thor_state_dict(params)})
+            _write_epoch_row(csv_path, [
+                epoch, float(np.mean(losses)),
+                float(sched[0](count - len(losses))),
+                float(sched[0](count - 1)), dt,
+                " ".join(repr(float(v)) for v in losses)])
+            return losses, n
+
+        tr._run_epoch_indexed = record
+    else:
+        tcfg.override(pretextModelSaveDir=os.path.join(out, "var_model"))
+        tr = tpretext.PretextTrainer(tcfg, device="cpu")
+        tr._ensure_audio()
+        tr.model = VARPretextNet(3, "ai2thor")
+        tr.model.load_state_dict(ai2thor_state_dict(draw))
+        run = tr._run_epoch_indexed
+
+        def record(ds, bank, batch_size, epoch):
+            first = tr.lr_fn(tr.step)
+            t0 = time.time()
+            losses, n = run(ds, bank, batch_size, epoch)
+            _write_epoch_row(csv_path, [
+                epoch, float(np.mean(losses)), float(first),
+                float(tr.lr_fn(tr.step - 1)), time.time() - t0,
+                " ".join(repr(float(v)) for v in losses)])
+            return losses, n
+
+        tr._run_epoch_indexed = record
+    tr.trainRepresentation(epoch=epochs, log_csv=False)
+
+
+def compare_var_runs(work, out_csv, steps_csv=None):
+    """WORK/var_epochs.csv (or out_csv): both packages' loss at every epoch
+    and their parameters after it, at A2's bounds; and, into steps_csv,
+    every step's loss of both, with the one-ulp run's (`noise`) and the
+    one-thread run's (`threads`) where they ran."""
+    import csv
+
+    from var_tpu_torch.train.checkpoint import load_checkpoint
+
+    rows = {}
+    for package in ("jax", "port"):
+        with open(os.path.join(work, package, "epochs.csv")) as f:
+            rows[package] = {int(r["epoch"]): r for r in csv.DictReader(f)}
+    moved = 0.0
+    out = []
+    for ep in sorted(set(rows["jax"]) & set(rows["port"])):
+        j, t = rows["jax"][ep], rows["port"][ep]
+        jl = np.array(j["step_losses"].split(), np.float64)
+        tl = np.array(t["step_losses"].split(), np.float64)
+        # A2's parameter bound: 2 lr per step summed, both sides' LR equal
+        moved += 2 * len(tl) * float(t["lr_first"])
+        step_gap = np.abs(tl - jl) - (2e-4 + 1e-3 * np.abs(jl))
+        jp = load_checkpoint(os.path.join(work, "jax", "var_model",
+                                          str(ep)))["params"]
+        tp = load_checkpoint(os.path.join(work, "port", "var_model",
+                                          str(ep)))["params"]
+        d = torch.cat([(tp[k].float() - v.float()).abs().ravel()
+                       for k, v in jp.items()])
+        out.append(dict(
+            epoch=ep, jax_loss=float(j["mean_loss"]),
+            port_loss=float(t["mean_loss"]),
+            loss_rel_gap=abs(float(t["mean_loss"]) - float(j["mean_loss"]))
+            / abs(float(j["mean_loss"])),
+            steps_beyond_crnn_tol=int((step_gap > 0).sum()),
+            worst_step_gap_over_tol=float(step_gap.max()),
+            lr=float(t["lr_first"]), jax_lr=float(j["lr_first"]),
+            param_max_diff=float(d.max()), param_median_diff=float(
+                d.median()), param_bound=moved + 5e-5,
+            params_within=bool(d.max() <= moved + 5e-5),
+            jax_seconds=float(j["seconds"]),
+            port_seconds=float(t["seconds"])))
+    with open(out_csv, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(out[0]))
+        w.writeheader()
+        w.writerows(out)
+    if steps_csv:
+        floors = []
+        for name in ("port_ulp", "port_1thread"):
+            path = os.path.join(work, name, "steps.csv")
+            floors.append([])
+            if os.path.exists(path):
+                with open(path) as f:
+                    floors[-1] = [r["loss"] for r in csv.DictReader(f)]
+        with open(steps_csv, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["epoch", "step", "jax_loss", "port_loss",
+                        "port_one_ulp_loss", "port_one_thread_loss"])
+            for ep in sorted(set(rows["jax"]) & set(rows["port"])):
+                pairs = zip(rows["jax"][ep]["step_losses"].split(),
+                            rows["port"][ep]["step_losses"].split())
+                for i, (j, t) in enumerate(pairs):
+                    w.writerow([ep, i, j, t] + [
+                        f[i] if ep == 0 and i < len(f) else ""
+                        for f in floors])
+    return out
+
+
 if __name__ == "__main__":
     import argparse
 
@@ -657,9 +926,28 @@ if __name__ == "__main__":
         log.add_argument("--policy-init", choices=["own", "jax"],
                          default="own",
                          help="the port only: start from JAX's policy draw")
+    tv = sub.add_parser("train-var")
+    tv.add_argument("what", choices=["collect", "jax", "port", "compare",
+                                     "noise", "threads"])
+    tv.add_argument("work")
+    tv.add_argument("--epochs", type=int, default=60)
+    tv.add_argument("--var-key", type=int, default=977)
+    tv.add_argument("--out", default=None,
+                    help="compare: the CSV (default WORK/var_epochs.csv)")
+    tv.add_argument("--steps-out", default=None,
+                    help="compare: every step's losses into this CSV")
     a = ap.parse_args()
     torch.set_num_threads(4)
-    if a.command == "draws":
+    if a.command == "train-var":
+        if a.what == "compare":
+            compare_var_runs(a.work, a.out or os.path.join(
+                a.work, "var_epochs.csv"), a.steps_out)
+        elif a.what in ("noise", "threads"):
+            noise_floor(os.path.abspath(a.work), a.epochs, a.var_key,
+                        how="ulp" if a.what == "noise" else "threads")
+        else:
+            train_var(a.what, os.path.abspath(a.work), a.epochs, a.var_key)
+    elif a.command == "draws":
         print(write_jax_draws(a.out_dir, a.var_key, a.policy_key))
     else:
         _log_run(a.command, a.var_checkpoint, a.out_dir, a.envs, a.updates,

@@ -45,14 +45,20 @@ SMALL = dict(RLNumEnvs=N, RLEnvMaxSteps=T, ppoNumSteps=T,
              sound_dim=(1, 100, 40), vecEnvBackend="dummy")
 
 
-@pytest.fixture(autouse=True)
-def _small(monkeypatch):
-    """One torch thread per test worker; 3 synthetic clips per class."""
-    monkeypatch.setenv("VAR_TPU_SYNTH_CLIPS", "3")
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread per test worker, the module's fixtures included:
+    the tier-1 run puts several workers on one machine."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def _small(monkeypatch):
+    """3 synthetic clips per class."""
+    monkeypatch.setenv("VAR_TPU_SYNTH_CLIPS", "3")
 
 
 def _configs(**extra):

@@ -48,9 +48,10 @@ QUOTA = [2, 2, 4, 4, 8]
 VAR_BATCH, VAR_EPOCHS, VAR_DECAY = 4, 3, [1, 2]
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _threads():
-    """Two torch threads per test worker: the machine is shared."""
+    """Two torch threads per test worker, the module's fixtures
+    included: the machine is shared."""
     n = torch.get_num_threads()
     torch.set_num_threads(2)
     yield

@@ -78,6 +78,18 @@ def test_recording_and_manual_control_modules_are_covered():
         assert f"var_tpu_torch.{name}" in modules
 
 
+def test_parallel_modules_are_covered():
+    """The meshShape package (parallel/__init__.py, parallel/mesh.py) is
+    among the modules scanned and imported with jax and var_tpu blocked
+    here."""
+    modules = set(_modules())
+    for name in ("parallel", "parallel.mesh"):
+        assert f"var_tpu_torch.{name}" in modules
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"var_tpu_torch/parallel/__init__.py",
+            "var_tpu_torch/parallel/mesh.py"} <= scanned
+
+
 def test_every_module_imports_with_jax_and_var_tpu_blocked():
     blocked = FORBIDDEN + ("var_tpu",)
     code = "\n".join([

@@ -204,6 +204,92 @@ def test_grid_var_training_agrees_on_card_and_cpu(tmp_path, monkeypatch):
         assert (params["cuda"][k] - v).abs().max().item() <= bound, k
 
 
+def _bf16_order(x: torch.Tensor) -> torch.Tensor:
+    """bf16 values as integers in their numeric order (adjacent bf16 values
+    differ by 1; +0 and -0 are both 0)."""
+    bits = x.contiguous().view(torch.int16).to(torch.int32)
+    return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+
+def _image_stacks():
+    """(name, convs, forward plan) of every image conv stack: the VAR's
+    arm and ai2thor image branches, the arm and grid policies' image
+    convs. A plan lists 'conv' and 'pool' in order."""
+    from var_tpu_torch.models.encoders import (AI2ThorImageBranch,
+                                               ArmImageBranch,
+                                               flax_default_init_)
+    from var_tpu_torch.models.policy import AI2THOR_CONVS, _convs, conv_plan
+
+    g = torch.Generator().manual_seed(0)
+    stacks = []
+    arm = ArmImageBranch()
+    stacks.append(("VAR arm image", arm.convs, ["conv"] * 5))
+    grid = AI2ThorImageBranch()
+    stacks.append(("VAR ai2thor image", grid.convs,
+                   ["conv", "conv", "pool", "conv", "pool", "conv", "pool",
+                    "conv", "pool", "conv"]))
+    for name, plan in (("policy arm image", conv_plan((3, 96, 96))),
+                       ("policy grid image", AI2THOR_CONVS)):
+        stacks.append((name, _convs(plan, 3),
+                       ["pool" if p == "pool" else "conv" for p in plan]))
+    for _, convs, _ in stacks:
+        flax_default_init_(convs, g)
+    return stacks
+
+
+@pytest.mark.cuda
+def test_bf16_convs_within_one_step_of_exact_rounding():
+    """Each conv of every image stack at computeDtype='bfloat16' on the
+    card, through models/encoders.py::conv (a zero bias, so the output is
+    the product cuDNN rounded to bf16), against the float64 product of the
+    same bf16 inputs rounded to bf16: at most one bf16 step apart. Each
+    conv reads the activations the stack gives it at bf16 from seeded
+    images (ReLU, 2x2 max-pools). This is the ground of the bf16
+    tolerances tests/test_torch_bf16.py and tools/rl_check.py state."""
+    import torch.nn.functional as F
+
+    from var_tpu_torch.models.encoders import conv
+
+    _require_card("it holds cuDNN's bf16 convolutions")
+    rng = np.random.RandomState(0)
+    images = torch.from_numpy(
+        rng.randint(0, 256, (8, 3, 96, 96)).astype(np.float32) / 255.0)
+    worst = {}
+    for name, convs, plan in _image_stacks():
+        convs = convs.cuda()
+        x = images.cuda().to(torch.bfloat16)
+        it = iter(convs)
+        for i, step in enumerate(plan):
+            if step == "pool":
+                x = F.max_pool2d(x, 2)
+                continue
+            layer = next(it)
+            with torch.no_grad():
+                bias = layer.bias.detach().clone()
+                layer.bias.zero_()
+                got = conv(layer, x, torch.bfloat16)
+                layer.bias.copy_(bias)
+                exact = F.conv2d(x.cpu().double(),
+                                 layer.weight.detach().cpu().to(
+                                     torch.bfloat16).double(),
+                                 None, layer.stride, layer.padding)
+                want = exact.to(torch.bfloat16)
+                gap = (_bf16_order(got.cpu()) - _bf16_order(want)).abs()
+                worst[f"{name} conv {i}"] = int(gap.max())
+                # beside it, not asserted: the largest gap in units of the
+                # layer's output scale, and the share over one step
+                scale = (got.cpu().double() - exact).abs().max() \
+                    / exact.abs().max()
+                print(f"{name} conv {i}: {int(gap.max())} step(s) at most, "
+                      f"{(gap > 1).double().mean().item():.2e} of outputs "
+                      f"beyond one step, largest gap {scale.item():.2e} "
+                      "of the layer's largest output")
+                x = F.relu(conv(layer, x, torch.bfloat16))
+    print("largest gap in bf16 steps, by conv:", worst)
+    print("largest gap seen:", max(worst.values()), "bf16 step(s)")
+    assert max(worst.values()) <= 1, worst
+
+
 def test_build_without_nvcc_raises(monkeypatch):
     if shutil.which("nvcc"):
         pytest.skip("nvcc is present; the build itself is tested on the card")

@@ -29,7 +29,7 @@ from var_tpu_torch.ops import gru as tgru
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """The tier-1 run puts several test workers on one machine; torch's
     default of a thread per core in each of them oversubscribes the cores,

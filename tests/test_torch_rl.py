@@ -56,7 +56,7 @@ PROGRESS_COLUMNS = [
 EVAL_COLUMNS = ["objIdx", "goal area count", "rewards", "results"]
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """The tier-1 run puts several test workers on one machine; torch's
     default of a thread per core in each of them oversubscribes the cores,
@@ -334,9 +334,13 @@ def test_resume_continues_adam_state_and_labels(var_checkpoint):
 
 @pytest.mark.parametrize("knob,value", [("meshShape", {"dp": 2})])
 def test_unported_modes_raise_naming_their_roadmap_item(knob, value):
+    """meshShape is ported (tests/test_torch_parallel.py): a dp=2 mesh in
+    one process with no group of 2 ranks raises rather than training on
+    one; the entry point and torchrun start the ranks. (The name is the
+    one it had while the knob raised as unported.)"""
     _, tcfg = _configs(RLTrain=True, **{knob: value})
     trainer = trl.RLTrainer(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         trainer.trainRL()
 
 

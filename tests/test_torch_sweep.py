@@ -36,13 +36,19 @@ def jcurve():
     return success_curve
 
 
-@pytest.fixture(autouse=True)
-def _small_cpu(monkeypatch):
-    monkeypatch.setenv("VAR_TPU_SYNTH_CLIPS", "4")
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread per test worker, the module's fixtures included:
+    the tier-1 run puts several workers on one machine."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def _small_cpu(monkeypatch):
+    monkeypatch.setenv("VAR_TPU_SYNTH_CLIPS", "4")
 
 
 def test_list_checkpoints_matches_jax(tmp_path, jcurve):

@@ -62,13 +62,19 @@ SMALL = dict(RLNumEnvs=N, RLEnvMaxSteps=T, ppoNumSteps=T, ppoEpoch=2,
              RLLogInterval=1, RLModelSaveInterval=1)
 
 
-@pytest.fixture(autouse=True)
-def _small(monkeypatch):
-    monkeypatch.setenv("VAR_TPU_SYNTH_CLIPS", "4")
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread per test worker, the module's fixtures included:
+    the tier-1 run puts several workers on one machine."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def _small(monkeypatch):
+    monkeypatch.setenv("VAR_TPU_SYNTH_CLIPS", "4")
 
 
 def _configs(tmp_path=None, **extra):

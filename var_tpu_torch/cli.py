@@ -2,13 +2,17 @@
 
     python -m var_tpu_torch.pretext --env arms [--device cpu] --set KNOB=VALUE ...
 
-The device defaults to CUDA; --device cpu runs on the CPU.
+The device defaults to CUDA; --device cpu runs on the CPU. With
+--set meshShape='{"dp": n}' a training run starts n ranks (one process
+each, under spawn; rank r on cuda:r, or gloo ranks on the CPU), or joins
+the group of a torchrun launcher (see sharded_main).
 """
 from __future__ import annotations
 
 import argparse
 import ast
-from typing import Optional, Sequence
+import os
+from typing import Callable, Optional, Sequence
 
 from var_tpu_torch.config import main_config
 
@@ -70,3 +74,18 @@ def build_config(args, role: str):
         # re-validate: the __init__-time check only saw the defaults
         config.cfg_check()
     return config
+
+
+def sharded_main(config, device, rank_fn: Callable, args: tuple = ()):
+    """Run rank_fn(config, *args, device=...) on every rank of
+    config.meshShape (parallel/mesh.py::launch): spawned here, or this
+    process as one rank of a torchrun launch. CPU ranks share the host's
+    cores."""
+    from var_tpu_torch.parallel.mesh import launch, mesh_size
+
+    n = mesh_size(config.meshShape)
+    threads = None
+    if device is not None and str(device).startswith("cpu"):
+        threads = max(1, (os.cpu_count() or 1) // n)
+    return launch(rank_fn, (config,) + tuple(args), n, device=device,
+                  threads=threads)

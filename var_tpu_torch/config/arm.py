@@ -4,9 +4,10 @@ A copy of var_tpu/config/arm.py: the same knob names, defaults and
 semantics, so that a config file or a --set line means the same in both
 packages. The backend knobs at the bottom keep their names too;
 `audioBackend='pallas'` selects the port's hand-written CUDA mel-log-DCT
-kernel (var_tpu_torch/ops/mel_log_dct.py). Knobs of paths this package
-does not run yet (meshShape, the RL rollout modes) are kept so that
-configs stay interchangeable; the trainer raises where one is set.
+kernel (var_tpu_torch/ops/mel_log_dct.py); `meshShape={'dp': n}` trains
+on n ranks (var_tpu_torch/parallel/). A knob of a path this package does
+not run (realTimeVec's live plot) is kept so that configs stay
+interchangeable; the trainer raises where one is set.
 """
 import os
 

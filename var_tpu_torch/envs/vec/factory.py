@@ -31,7 +31,8 @@ class EnvThunk:
 
 def make_vec_envs(env_name: str, seed: int, num_processes: int, gamma,
                   randomCollect: bool, config, pretext_model=None,
-                  audio: Optional[AudioStore] = None, device="cpu"):
+                  audio: Optional[AudioStore] = None, device="cpu",
+                  first_env: int = 0):
     """Build the vectorized env stack, as the JAX package's factory does.
 
     vecEnvBackend 'auto' gives ShmemVecEnv (one worker process per env,
@@ -39,7 +40,9 @@ def make_vec_envs(env_name: str, seed: int, num_processes: int, gamma,
     num_processes > 1 and DummyVecEnv (in-process) for one env; 'shmem'
     always gives ShmemVecEnv and 'dummy' always DummyVecEnv. Env i is
     seeded seed + i either way, so both backends give the same
-    observations. Unless randomCollect, the frozen-VAR reward wrapper
+    observations. `first_env` offsets the indices (a rank of a sharded run
+    builds envs first_env .. first_env + num_processes - 1, seeded as the
+    unsharded run seeds them). Unless randomCollect, the frozen-VAR reward wrapper
     (rl/reward.py::VecVARReward) goes on top, running `pretext_model` on
     `device`, with return normalisation when `gamma` is given; the fused
     RL paths build their envs with randomCollect=True and compute the
@@ -50,7 +53,8 @@ def make_vec_envs(env_name: str, seed: int, num_processes: int, gamma,
     if not randomCollect and pretext_model is None:
         raise ValueError("make_vec_envs(randomCollect=False) needs the "
                          "frozen VAR (pretext_model)")
-    thunks = [EnvThunk(env_name, seed, i) for i in range(num_processes)]
+    thunks = [EnvThunk(env_name, seed, first_env + i)
+              for i in range(num_processes)]
     if audio is None:
         audio = AudioStore(config)
         audio.loadData()

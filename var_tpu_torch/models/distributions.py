@@ -48,20 +48,28 @@ def gumbel_noise(shape, generator: Optional[torch.Generator] = None,
     return -torch.log(-torch.log(u.clamp_min(torch.finfo(dtype).tiny)))
 
 
+def draw_noise(dist: DistParams, generator: Optional[torch.Generator] = None,
+               rows: Optional[int] = None) -> torch.Tensor:
+    """The `noise` a sample of `dist` takes, drawn from `generator`; `rows`
+    rows in place of the batch's (a sharded batch draws every rank's rows
+    and keeps its block)."""
+    shape, dtype, device = _draw_shape(dist)
+    if rows is not None:
+        shape = (rows,) + tuple(shape[1:])
+    if dist.kind == "gaussian":
+        return torch.randn(shape, generator=generator, dtype=dtype,
+                           device=device)
+    if dist.kind == "categorical":
+        return gumbel_noise(shape, generator, dtype, device)
+    return torch.rand(shape, generator=generator, dtype=dtype, device=device)
+
+
 def sample(dist: DistParams, generator: Optional[torch.Generator] = None,
            noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A draw from `dist`, from `generator` (on the tensors' device) or
     from the given `noise` (see the module docstring)."""
     if noise is None:
-        shape, dtype, device = _draw_shape(dist)
-        if dist.kind == "gaussian":
-            noise = torch.randn(shape, generator=generator, dtype=dtype,
-                                device=device)
-        elif dist.kind == "categorical":
-            noise = gumbel_noise(shape, generator, dtype, device)
-        else:
-            noise = torch.rand(shape, generator=generator, dtype=dtype,
-                               device=device)
+        noise = draw_noise(dist, generator)
     if dist.kind == "categorical":
         a = torch.argmax(dist.logits + noise, dim=-1)
         return a[:, None].to(torch.int32)

@@ -31,9 +31,17 @@ the policy's own: the card-against-CPU check (tools/rl_check.py) drives
 the CPU engine with the card's actions, so that a pixel flip from a
 last-bit difference in an action cannot compound over the steps.
 
-Not ported yet: the env-axis mesh sharding (ROADMAP "Parallelism") and
-cost_report, which waits for the port's bench and flops tools (ROADMAP
-"A port bench.py").
+Under a mesh (meshShape, parallel/mesh.py; one process per rank) each
+rank's engine runs its contiguous block of the N envs. Every rank draws
+the global draws (CollectDraws, GridCollectDraws: global shapes, from
+generators seeded alike) and takes its block, as the JAX engine lays one
+key's global draws out over its devices; explicit draws and `actions` are
+global too. So the resets, the goals and the action noise are dp=1's. The
+return-RMS takes its moments over all N envs (the sum, then the squared
+deviations, each all-reduced); the goal bank is built on every rank.
+
+Not ported: cost_report, which waits for the port's bench and flops tools
+(ROADMAP "A port bench.py").
 """
 from __future__ import annotations
 
@@ -52,6 +60,7 @@ from var_tpu_torch.models.distributions import (
     sample,
 )
 from var_tpu_torch.ops.gae import compute_returns
+from var_tpu_torch.parallel.mesh import all_reduce_sum_
 
 
 class RMSState(NamedTuple):
@@ -72,15 +81,29 @@ def init_rms(n: int, device="cpu") -> RMSState:
                     full((), 1e-4))
 
 
+def batch_moments(ret: torch.Tensor, mesh=None):
+    """(mean, biased variance, count) of the running returns over every
+    rank's envs: without a mesh ret.mean() and ret.var(unbiased=False);
+    under one, two passes, each sum all-reduced."""
+    if mesh is None:
+        return ret.mean(), ret.var(unbiased=False), ret.shape[0]
+    n = ret.shape[0] * mesh.dp
+    total = ret.sum().reshape(1)
+    all_reduce_sum_([total], mesh)
+    mean = total[0] / n
+    sq = ((ret - mean) ** 2).sum().reshape(1)
+    all_reduce_sum_([sq], mesh)
+    return mean, sq[0] / n, n
+
+
 def rms_step(rms: RMSState, raw_r, gamma: float, epsilon: float,
-             cliprew: float):
+             cliprew: float, mesh=None):
     """One step of the return-RMS normaliser: parallel moments over the N
-    running returns, the batch variance biased (jnp.var). Returns (rms',
-    the clipped normalised reward)."""
+    running returns (every rank's, under a mesh), the batch variance
+    biased (jnp.var). Returns (rms', the clipped normalised reward)."""
     ret, m, v, cnt = rms
-    n = ret.shape[0]
     ret = ret * gamma + raw_r
-    b_mean, b_var = ret.mean(), ret.var(unbiased=False)
+    b_mean, b_var, n = batch_moments(ret, mesh)
     delta = b_mean - m
     tot = cnt + n
     m = m + delta * n / tot
@@ -102,6 +125,21 @@ class EvalDraws(NamedTuple):
     noise: Optional[torch.Tensor] = None  # (T, N, A); None if deterministic
 
 
+def _local_draws(mesh, draws, actions=None):
+    """This rank's block of a collect's global draws (the env axis leads,
+    the noise's and the actions' is axis 1)."""
+    if mesh is None:
+        return draws, actions
+    reset = type(draws.reset)(*(mesh.shard(x, 0, "the draws' envs")
+                                for x in draws.reset))
+    rows = [mesh.shard(x, 0, "the draws' envs") for x in draws[1:-1]]
+    noise = (None if draws.noise is None
+             else mesh.shard(draws.noise, 1, "the draws' envs"))
+    if actions is not None:
+        actions = mesh.shard(actions, 1, "the forced actions' envs")
+    return type(draws)(reset, *rows, noise), actions
+
+
 class DeviceSimEngine:
     """Rollout collector whose environment is device code. `var_model` is
     the frozen VAR and `policy` the Policy, both on `device`; PPO updates
@@ -116,14 +154,13 @@ class DeviceSimEngine:
                 "RLRewardSoundSound (current-sound reward term) is not "
                 "supported by the device-resident sim path; use the host "
                 "fused engine (rl/rollout_device.py)")
-        if mesh is not None:
-            raise NotImplementedError(
-                "the env-axis mesh of the device sim is not ported yet "
-                "(ROADMAP 'Modules left to port': parallelism)")
         self.var_model = var_model
         self.policy = policy
         self.config = config
-        self.T, self.N = T, N
+        self.mesh = mesh
+        # N counts every rank's envs; self.N this rank's block
+        self.T, self.N_global = T, N
+        self.N = N = mesh.local(N, "RLNumEnvs") if mesh is not None else N
         self.k = sim.consts_from_config(config)
         self.D = config.representationDim
         self.hidden = policy.recurrent_hidden_state_size
@@ -186,7 +223,8 @@ class DeviceSimEngine:
     # -- draws ----------------------------------------------------------------
 
     def draw_collect(self) -> CollectDraws:
-        g, N, dev = self.generator, self.N, self.device
+        """The global draws of one collect (every rank's envs)."""
+        g, N, dev = self.generator, self.N_global, self.device
         return CollectDraws(
             sim.draw_reset(g, N, self.k, dev),
             torch.randint(0, self.config.taskNum, (N,), generator=g,
@@ -196,7 +234,7 @@ class DeviceSimEngine:
             torch.randn((self.T + 1, N, self.A), generator=g, device=dev))
 
     def draw_eval(self) -> EvalDraws:
-        g, N, dev = self.generator, self.N, self.device
+        g, N, dev = self.generator, self.N_global, self.device
         noise = None
         if not self.config.RLDeterministic:
             noise = torch.randn((self.T, N, self.A), generator=g, device=dev)
@@ -237,6 +275,7 @@ class DeviceSimEngine:
         cfg, k, T, D = self.config, self.k, self.T, self.D
         if draws is None:
             draws = self.draw_collect()
+        draws, actions = _local_draws(self.mesh, draws, actions)
         obj_pose, _, ee = sim.reset_from_draws(draws.reset, k)
         goal_feat = self.goal_bank[draws.intent, draws.clip]  # (N, D)
         img, ifeat = self._observe(obj_pose, ee)
@@ -258,7 +297,7 @@ class DeviceSimEngine:
             raw_r = torch.sum(ifeat[:, :D] * goal_feat, dim=1)
             raw_sum = raw_sum + raw_r
             rms, norm_r = rms_step(rms, raw_r, self.gamma, self.epsilon,
-                                   self.cliprew)
+                                   self.cliprew, self.mesh)
             self.rewards[t].copy_(norm_r)
 
             forced = None if actions is None or t + 1 == T else actions[t + 1]
@@ -357,16 +396,14 @@ class GridDeviceSimEngine:
             raise NotImplementedError(
                 "RLRewardSoundSound is not supported by the device-resident "
                 "grid sim path")
-        if mesh is not None:
-            raise NotImplementedError(
-                "the env-axis mesh of the device sim is not ported yet "
-                "(ROADMAP 'Modules left to port': parallelism)")
         from var_tpu_torch.data.audio_store import Task
 
         self.var_model = var_model
         self.policy = policy
         self.config = config
-        self.T, self.N = T, N
+        self.mesh = mesh
+        self.T, self.N_global = T, N  # see DeviceSimEngine
+        self.N = N = mesh.local(N, "RLNumEnvs") if mesh is not None else N
         self.D = config.representationDim
         self.hidden = policy.recurrent_hidden_state_size
         self.A = len(config.allActions)
@@ -435,7 +472,8 @@ class GridDeviceSimEngine:
         return gumbel_noise(shape, self.generator, device=self.device)
 
     def draw_collect(self) -> GridCollectDraws:
-        g, N, dev = self.generator, self.N, self.device
+        """The global draws of one collect (every rank's envs)."""
+        g, N, dev = self.generator, self.N_global, self.device
         return GridCollectDraws(
             gsim.draw_reset(g, self.bank, N, dev),
             torch.randint(0, len(self.task_list), (N,), generator=g,
@@ -445,7 +483,7 @@ class GridDeviceSimEngine:
             self._gumbel((self.T + 1, N, self.A)))
 
     def draw_eval(self) -> GridEvalDraws:
-        g, N, dev = self.generator, self.N, self.device
+        g, N, dev = self.generator, self.N_global, self.device
         noise = None
         if not self.config.RLDeterministic:
             noise = self._gumbel((self.T, N, self.A))
@@ -488,6 +526,7 @@ class GridDeviceSimEngine:
         cfg, T, D = self.config, self.T, self.D
         if draws is None:
             draws = self.draw_collect()
+        draws, actions = _local_draws(self.mesh, draws, actions)
         plan, pos, rot, tog = self._reset(draws.reset, draws.task)
         goal_feat = self.goal_bank[draws.task, draws.clip]  # (N, D)
         img, occ, ifeat = self._observe(plan, pos, rot, tog)
@@ -510,7 +549,7 @@ class GridDeviceSimEngine:
             raw_r = torch.sum(ifeat[:, :D] * goal_feat, dim=1)
             raw_sum = raw_sum + raw_r
             rms, norm_r = rms_step(rms, raw_r, self.gamma, self.epsilon,
-                                   self.cliprew)
+                                   self.cliprew, self.mesh)
             self.rewards[t].copy_(norm_r)
 
             forced = None if actions is None or t + 1 == T else actions[t + 1]

@@ -16,6 +16,15 @@ the recurrent minibatch generator (models/ppo/storage.py:175-245):
   moment, then the learning rate (constant, or joined linear/cosine decay
   counted in optimizer steps).
 
+Under a mesh (meshShape, parallel/mesh.py) each rank holds its block of
+the rollout's envs. The update gathers the whole rollout onto every rank
+once, normalises the advantages over it, and takes each minibatch's
+global envs (or transitions) from the same permutation as dp=1; each rank
+takes an equal block of them and computes its block's loss sum over the
+whole minibatch's size, and the gradients (and the metrics) are summed
+over the ranks before the global-norm clip. Every rank then clips and
+steps identically, so the parameters stay bit-equal across ranks.
+
 The update runs eagerly and does not synchronise: the parameters, the Adam
 moments and the metrics stay on the device. It updates the policy's own
 parameters in place, so every holder of the module (the rollout engine)
@@ -30,6 +39,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Union
 import torch
 
 from var_tpu_torch.models.policy import Policy, evaluate_actions
+from var_tpu_torch.parallel.mesh import Mesh, all_gather_env, all_reduce_sum_
 
 
 class PPOConfig(NamedTuple):
@@ -106,9 +116,11 @@ class PPO:
 
     B1, B2 = 0.9, 0.999
 
-    def __init__(self, model: Policy, cfg: PPOConfig):
+    def __init__(self, model: Policy, cfg: PPOConfig,
+                 mesh: Optional[Mesh] = None):
         self.model = model
         self.cfg = cfg
+        self.mesh = mesh
         self.schedule = self._lr_schedule()
 
     def _lr_schedule(self) -> Union[float, Callable[[int], float]]:
@@ -158,8 +170,11 @@ class PPO:
 
     def draw_perms(self, batch, generator: torch.Generator) -> torch.Tensor:
         """The update's epoch permutations, (ppo_epoch, N) over envs
-        (recurrent) or (ppo_epoch, T*N) over transitions."""
+        (recurrent) or (ppo_epoch, T*N) over transitions; N counts every
+        rank's envs (a rank's batch holds its block)."""
         T, N = batch["returns"].shape
+        if self.mesh is not None:
+            N = N * self.mesh.dp
         n = N if self.model.recurrent else T * N
         device = batch["returns"].device
         return torch.stack([
@@ -217,15 +232,43 @@ class PPO:
                  - dist_entropy * cfg.entropy_coef)
         return total, torch.stack([value_loss, action_loss, dist_entropy])
 
-    def _step(self, state: PPOState, *mb):
+    def _step(self, state: PPOState, *mb, share: float = 1.0):
+        """One minibatch. Under a mesh the minibatch is this rank's block,
+        `share` of the whole: the losses are scaled to it, and the
+        gradients and the metrics summed over the ranks."""
         total, stats = self._minibatch_loss(*mb)
+        if self.mesh is not None:
+            total, stats = total * share, stats * share
         grads = list(torch.autograd.grad(total, list(state.params.values())))
-        return self._apply_adam(state, grads), stats.detach()
+        stats = stats.detach()
+        if self.mesh is not None:
+            all_reduce_sum_(grads + [stats], self.mesh)
+        return self._apply_adam(state, grads), stats
+
+    def _gather(self, batch):
+        """The whole rollout on every rank: each (T, N_rank, ...) tensor
+        joined along its env axis, rnn_hx0 along axis 0."""
+        if self.mesh is None:
+            return batch
+        out = {k: all_gather_env(v, self.mesh, 1) for k, v in batch.items()
+               if k not in ("obs", "rnn_hx0")}
+        out["obs"] = {k: all_gather_env(v, self.mesh, 1)
+                      for k, v in batch["obs"].items()}
+        out["rnn_hx0"] = all_gather_env(batch["rnn_hx0"], self.mesh, 0)
+        return out
+
+    def _block(self, idx: torch.Tensor):
+        """(this rank's block of a minibatch's indices, its share)."""
+        if self.mesh is None:
+            return idx, 1.0
+        return (self.mesh.shard(idx, 0, "the minibatch"),
+                1.0 / self.mesh.dp)
 
     def update(self, state: PPOState, batch, perms: torch.Tensor):
         """batch: DeviceRolloutEngine.device_batch(); perms: see
         draw_perms. Returns (state, metrics as device scalars)."""
         cfg = self.cfg
+        batch = self._gather(batch)
         T, N = batch["returns"].shape
         if self.model.recurrent and N % cfg.num_mini_batch != 0:
             raise ValueError(
@@ -241,16 +284,20 @@ class PPO:
         n = N // cfg.num_mini_batch
         stats = []
         for env_idx in perms.reshape(cfg.ppo_epoch * cfg.num_mini_batch, n):
+            env_idx, share = self._block(env_idx)
+            m = env_idx.shape[0]
+
             def take(x):
                 x = x.index_select(1, env_idx)
-                return x.reshape((T * n,) + x.shape[2:])
+                return x.reshape((T * m,) + x.shape[2:])
 
             state, s = self._step(
                 state, {k: take(v) for k, v in batch["obs"].items()},
                 batch["rnn_hx0"].index_select(0, env_idx),
                 take(batch["masks"]), take(batch["actions"]),
                 take(batch["value_preds"]), take(batch["returns"]),
-                take(batch["old_log_probs"]), take(advantages), T)
+                take(batch["old_log_probs"]), take(advantages), T,
+                share=share)
             stats.append(s)
         return self._finish(state, stats)
 
@@ -270,15 +317,16 @@ class PPO:
         cols = [flat(batch[k]) for k in ("masks", "actions", "value_preds",
                                          "returns", "old_log_probs")]
         adv = flat(advantages)
-        hx = torch.zeros((mb_size, 1), device=adv.device)
         stats = []
         for perm in perms:
             for mb in range(cfg.num_mini_batch):
-                idx = perm[mb * mb_size:(mb + 1) * mb_size]
+                idx, share = self._block(
+                    perm[mb * mb_size:(mb + 1) * mb_size])
+                hx = torch.zeros((idx.shape[0], 1), device=adv.device)
                 state, s = self._step(
                     state, {k: v.index_select(0, idx) for k, v in obs.items()},
                     hx, *(c.index_select(0, idx) for c in cols),
-                    adv.index_select(0, idx), 1)
+                    adv.index_select(0, idx), 1, share=share)
                 stats.append(s)
         return self._finish(state, stats)
 

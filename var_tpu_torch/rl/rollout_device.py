@@ -24,8 +24,13 @@ some row starts an episode, the goal MFCC. The return-RMS runs in float32
 on the device with the JAX engine's arithmetic: the batch variance is the
 biased one (jnp.var).
 
-The JAX engine's mesh sharding, its tunnel reader thread and cost_report
-are not part of this slice.
+Under a mesh (meshShape, parallel/mesh.py; one process per rank) the
+engine runs this rank's contiguous block of the N envs, over host envs
+built for those env indices only. The return-RMS takes its moments over
+all N envs (rl/device_sim.py::batch_moments), and the action noise is
+drawn for all N envs from generators seeded alike, this rank taking its
+block, so the run draws what dp=1 draws. The JAX engine's tunnel reader
+thread and cost_report have no counterpart here.
 """
 from __future__ import annotations
 
@@ -35,8 +40,14 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from var_tpu_torch.models.distributions import log_probs, mode, sample
+from var_tpu_torch.models.distributions import (
+    draw_noise,
+    log_probs,
+    mode,
+    sample,
+)
 from var_tpu_torch.ops.gae import compute_returns
+from var_tpu_torch.rl.device_sim import batch_moments
 
 
 @dataclass
@@ -83,13 +94,17 @@ class DeviceRolloutEngine:
                  cliprew: float = 10.0, epsilon: float = 1e-8,
                  deterministic: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 device: Any = "cpu"):
+                 device: Any = "cpu", mesh=None):
         if extra_key not in ("robot_pose", "occupancy"):
             raise ValueError(f"unknown policy observation {extra_key!r}")
         self.var_model = var_model
         self.policy = policy
         self.config = config
-        self.T, self.N = num_steps, num_envs
+        self.mesh = mesh
+        # num_envs counts every rank's envs; self.N this rank's block
+        self.T, self.N_global = num_steps, num_envs
+        self.N = (mesh.local(num_envs, "RLNumEnvs") if mesh is not None
+                  else num_envs)
         self.extra_key = extra_key
         self.gamma, self.cliprew, self.epsilon = gamma, cliprew, epsilon
         # the distribution's mode instead of a sample in every act: the
@@ -107,7 +122,7 @@ class DeviceRolloutEngine:
 
         D = config.representationDim
         H = policy.recurrent_hidden_state_size
-        T, N = num_steps, num_envs
+        T, N = num_steps, self.N
         img_dim = tuple(config.img_dim)
 
         def zeros(shape, dtype=torch.float32):
@@ -150,6 +165,9 @@ class DeviceRolloutEngine:
         if self.deterministic:
             action = mode(dist)
         else:
+            if noise is None and self.mesh is not None:
+                noise = self.mesh.shard(
+                    draw_noise(dist, self.generator, self.N_global), 0)
             action = sample(dist, self.generator, noise)
         return value[:, 0], action, log_probs(dist, action)[:, 0], new_hx
 
@@ -176,7 +194,6 @@ class DeviceRolloutEngine:
         done = packed_host[:, 1]
         bad = packed_host[:, 2]
         env_reward = packed_host[:, 3]
-        N = self.N
 
         image_feat, goal_feat = self._encode(image_u8, goal_sound, fresh,
                                              use_sound)
@@ -191,8 +208,7 @@ class DeviceRolloutEngine:
 
         # return-RMS: parallel moments over the N running returns
         ret = b.ret * self.gamma + raw_reward
-        b_mean = ret.mean()
-        b_var = ret.var(unbiased=False)
+        b_mean, b_var, N = batch_moments(ret, self.mesh)
         delta = b_mean - b.rms_mean
         tot = b.rms_count + N
         new_mean = b.rms_mean + delta * N / tot

@@ -21,6 +21,15 @@ _upload_dataset picks one of four paths:
 On CUDA the chunk and batch uploads copy from pinned memory on a side
 stream; the compute stream waits on their events.
 
+With meshShape={'dp': n} (parallel/mesh.py; one process per rank, started
+by the entry point) every rank holds the whole dataset and bank, and each
+step's (B,) index row, or a streamed batch, is split into n contiguous
+blocks: each rank runs the MFCC and both encoders on its block, its loss
+is the block's sum over the global B, and the gradients (and the loss)
+are summed over the ranks before Adam, so every rank steps identically and
+the run computes what dp=1 computes. Only rank 0 writes checkpoints,
+config.json and progress.csv.
+
 testRepresentation writes the embedding points to representation.npz (the
 PNG plot draws with matplotlib, which the port does not use).
 """
@@ -41,6 +50,13 @@ from var_tpu_torch.device import resolve_device
 from var_tpu_torch.models.encoders import build_pretext_model
 from var_tpu_torch.ops.audio import sound_features
 from var_tpu_torch.ops.losses import triplet_margin_loss
+from var_tpu_torch.parallel.mesh import (
+    all_reduce_sum_,
+    barrier,
+    broadcast_,
+    build_mesh,
+    group_rank,
+)
 from var_tpu_torch.train.checkpoint import (
     is_checkpoint,
     latest_checkpoint,
@@ -111,6 +127,12 @@ class PretextTrainer:
         # (items, seconds) per epoch of the last trainRepresentation call;
         # each epoch's time ends at its loss readback, which synchronises
         self.epoch_stats = []
+        self.mesh = None  # set by trainRepresentation under meshShape
+
+    @property
+    def lead(self) -> bool:
+        """Whether this process writes files and prints (rank 0)."""
+        return self.mesh is None or self.mesh.lead
 
     # -- setup -------------------------------------------------------------
 
@@ -143,8 +165,9 @@ class PretextTrainer:
         payload = {"params": self.model.state_dict(), "step": self.step}
         if self.optimizer is not None:
             payload["opt_state"] = self.optimizer.state_dict()
-        save_checkpoint(path, payload)
-        print("Model saved to", path)
+        if self.lead:
+            save_checkpoint(path, payload)
+            print("Model saved to", path)
         return path
 
     def loadPretextModel(self, path: Optional[str] = None):
@@ -185,9 +208,21 @@ class PretextTrainer:
             total = f if total is None else total + f
         return total
 
-    def _optimize(self, image, pos_feat, neg_feat) -> torch.Tensor:
+    def _local(self, *xs):
+        """This rank's block of each (B, ...) batch tensor (all of it
+        without a mesh)."""
+        if self.mesh is None:
+            return xs
+        return tuple(self.mesh.shard(x, 0, "the batch") for x in xs)
+
+    def _optimize(self, image, pos_feat, neg_feat,
+                  total: Optional[int] = None) -> torch.Tensor:
         """Forward, backward and Adam on one batch (uint8 images are scaled
-        here). Returns the loss as a device scalar, without synchronising."""
+        here). Under a mesh the batch is this rank's block of `total`
+        items: its mean loss is scaled to the block's share, and the
+        gradients and the loss are summed over the ranks before Adam.
+        Returns the (global) loss as a device scalar, without
+        synchronising."""
         if image.dtype == torch.uint8:
             image = image.float() * (1.0 / 255.0)
         for group in self.optimizer.param_groups:
@@ -197,34 +232,54 @@ class PretextTrainer:
         loss = triplet_margin_loss(
             out["image_feat"], out["sound_feat_positive"],
             out["sound_feat_negative"], self.config.tripletMargin)
+        if self.mesh is not None:
+            loss = loss * (image.shape[0] / total)
         loss.backward()
+        loss = loss.detach()
+        if self.mesh is not None:
+            params = list(self.model.parameters())
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            loss = loss.reshape(1)
+            all_reduce_sum_([p.grad for p in params] + [loss], self.mesh)
+            loss = loss[0]
         self.optimizer.step()
         self.step += 1
-        return loss.detach()
+        return loss
 
     def _train_step_indexed(self, bank, img_idx, pos_idx, pos_zero, neg_idx,
                             neg_zero) -> torch.Tensor:
         """One step over the device-resident dataset: gathers, MFCC of both
         sounds (no gradient, as in the JAX step), then _optimize."""
+        total = img_idx.shape[0]
+        img_idx, pos_idx, pos_zero, neg_idx, neg_zero = self._local(
+            img_idx, pos_idx, pos_zero, neg_idx, neg_zero)
         image = bank["images"].index_select(0, img_idx)
         with torch.no_grad():
             pos_feat = self._features(bank, pos_idx, pos_zero)
             neg_feat = self._features(bank, neg_idx, neg_zero)
-        return self._optimize(image, pos_feat, neg_feat)
+        return self._optimize(image, pos_feat, neg_feat, total)
 
     def _train_step_multi(self, bank, img_idx, pos_ids, pos_sel, pos_zero,
                           neg_ids, neg_sel, neg_zero) -> torch.Tensor:
         """The multi-bank step: ids and selectors are (B, K), one column per
         STFT param set."""
+        total = img_idx.shape[0]
+        (img_idx, pos_ids, pos_sel, pos_zero, neg_ids, neg_sel,
+         neg_zero) = self._local(img_idx, pos_ids, pos_sel, pos_zero,
+                                 neg_ids, neg_sel, neg_zero)
         image = bank["images"].index_select(0, img_idx)
         with torch.no_grad():
             pos_feat = self._multi_features(bank, pos_ids, pos_sel, pos_zero)
             neg_feat = self._multi_features(bank, neg_ids, neg_sel, neg_zero)
-        return self._optimize(image, pos_feat, neg_feat)
+        return self._optimize(image, pos_feat, neg_feat, total)
 
     def _train_step_wav(self, image, pos_wav, pos_len, pos_zero, neg_wav,
-                        neg_len, neg_zero) -> torch.Tensor:
-        """The streaming step over uploaded packed waveforms."""
+                        neg_len, neg_zero,
+                        total: Optional[int] = None) -> torch.Tensor:
+        """The streaming step over uploaded packed waveforms (under a mesh,
+        this rank's block of a batch of `total`)."""
         cfg = self.config
         with torch.no_grad():
             pos_feat = sound_features(pos_wav, pos_len, cfg.sound_dim[1],
@@ -233,12 +288,13 @@ class PretextTrainer:
             neg_feat = sound_features(neg_wav, neg_len, cfg.sound_dim[1],
                                       self._param, backend=cfg.audioBackend,
                                       zero_mask=neg_zero)
-        return self._optimize(image, pos_feat, neg_feat)
+        return self._optimize(image, pos_feat, neg_feat, total)
 
-    def _train_step_feat(self, image, pos_feat, neg_feat) -> torch.Tensor:
+    def _train_step_feat(self, image, pos_feat, neg_feat,
+                         total: Optional[int] = None) -> torch.Tensor:
         """The streaming step over precomputed features (pretextDataHasSound
         shards): no MFCC, so no kernel launch."""
-        return self._optimize(image, pos_feat, neg_feat)
+        return self._optimize(image, pos_feat, neg_feat, total)
 
     # -- uploads ---------------------------------------------------------------
 
@@ -402,14 +458,15 @@ class PretextTrainer:
 
     def _device_batch(self, batch: TripletBatch):
         """A host batch's upload: (tensors, ready) as _upload_async.
-        Images go as uint8 and waveforms as int16, scaled on the device."""
+        Images go as uint8 and waveforms as int16, scaled on the device.
+        Under a mesh only this rank's block goes up."""
         arrays = (batch.image,)
         if batch.pos_feat is not None:
             arrays += (batch.pos_feat, batch.neg_feat)
         else:
             arrays += (batch.pos_wav, batch.pos_len, batch.pos_zero,
                        batch.neg_wav, batch.neg_len, batch.neg_zero)
-        return self._upload_async(arrays)
+        return self._upload_async(self._local(*arrays))
 
     def _prefetch_epoch(self, ds, batch_size: int, epoch: int):
         """The streaming path's batches, (host batch, device tensors), with
@@ -437,11 +494,12 @@ class PretextTrainer:
     def _run_epoch_streaming(self, ds, batch_size: int, epoch: int):
         losses, n = [], 0
         for batch, dev in self._prefetch_epoch(ds, batch_size, epoch):
+            total = len(batch.ground_truth)
             if batch.pos_feat is not None:
-                losses.append(self._train_step_feat(*dev))
+                losses.append(self._train_step_feat(*dev, total))
             else:
-                losses.append(self._train_step_wav(*dev))
-            n += len(batch.ground_truth)
+                losses.append(self._train_step_wav(*dev, total))
+            n += total
         return torch.stack(losses).tolist(), n
 
     # -- the training loop ---------------------------------------------------
@@ -451,10 +509,14 @@ class PretextTrainer:
                             dataset=None, log_csv: bool = True):
         cfg = self.config
         epoch = cfg.pretextEpoch if epoch is None else epoch
-        print("Begin representation training")
+        self.mesh = None
         if getattr(cfg, "meshShape", None):
-            raise NotImplementedError(
-                "meshShape (data parallelism) is not ported yet")
+            # every rank of the group: see the module docstring
+            self.mesh = build_mesh(cfg.meshShape, self.device)
+            self.mesh.local(cfg.pretextTrainBatchSize,
+                            "pretextTrainBatchSize")
+        if self.lead:
+            print("Begin representation training")
         audio = self._ensure_audio()
         ds = dataset if dataset is not None else load_env_data(cfg, audio)
         if len(ds) == 0:
@@ -471,11 +533,15 @@ class PretextTrainer:
             else:
                 print(f"fine-tune requested but {cfg.pretextModelLoadDir!r} "
                       "not found; training from scratch")
+        # every rank starts from rank 0's weights
+        broadcast_(list(self.model.state_dict().values()), self.mesh)
         self.setup_optimizer(steps_per_epoch, lr=lr,
                              start_step=start_ep * steps_per_epoch)
 
-        os.makedirs(cfg.pretextModelSaveDir, exist_ok=True)
-        cfg.save_json(os.path.join(cfg.pretextModelSaveDir, "config.json"))
+        if self.lead:
+            os.makedirs(cfg.pretextModelSaveDir, exist_ok=True)
+            cfg.save_json(os.path.join(cfg.pretextModelSaveDir,
+                                       "config.json"))
         bank = self._upload_dataset(ds)
 
         loss_list = []
@@ -494,23 +560,25 @@ class PretextTrainer:
             self.epoch_stats.append((n, time.perf_counter() - t_ep))
             avg_loss = float(np.mean(losses))
             loss_list.append(avg_loss)
-            print(f"epoch {start_ep + ep}: average loss {avg_loss:.5f}")
+            if self.lead:
+                print(f"epoch {start_ep + ep}: average loss {avg_loss:.5f}")
             if (ep + 1) % cfg.pretextModelSaveInterval == 0 or ep + 1 == epoch:
                 self.save_model(start_ep + ep)
 
         n_triplets = sum(n for n, _ in self.epoch_stats)
         dt = sum(t for _, t in self.epoch_stats)
-        if dt > 0 and n_triplets:
+        if dt > 0 and n_triplets and self.lead:
             print(f"pretext throughput: {n_triplets / dt:.1f} triplets/sec")
 
-        if log_csv and cfg.pretextTrain:
+        if log_csv and cfg.pretextTrain and self.lead:
             save_path = os.path.join(cfg.pretextModelSaveDir, "progress.csv")
             with open(save_path, "w", newline="") as f:
                 writer = csv.writer(f)
                 writer.writerow(["avg_loss"])
                 writer.writerows([v] for v in loss_list)
             print("results saved to", save_path)
-        print("Pretext Training Complete")
+        if self.lead:
+            print("Pretext Training Complete")
         return loss_list
 
     # -- data collection -----------------------------------------------------
@@ -697,7 +765,10 @@ class PretextTrainer:
             self.manuallyCollectPretextData()
             return
         if cfg.pretextCollection:
-            self.collectPretextData()
+            # under meshShape rank 0 collects and the others wait for it
+            if group_rank() == 0:
+                self.collectPretextData()
+            barrier()
         if cfg.pretextTrain:
             self.trainRepresentation(epoch=cfg.pretextEpoch, lr=cfg.pretextLR)
         elif not cfg.pretextCollection:

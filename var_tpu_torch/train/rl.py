@@ -19,8 +19,15 @@ var_tpu/train/rl.py: the fused, device-sim and reward-wrapper paths).
   the VAR reward wrapper, the frame written as a PNG each step;
 - CSV progress, checkpoints and the success-rate CSV for all of them.
 
-meshShape waits for a later slice and raises NotImplementedError naming
-its ROADMAP entry ("Modules left to port") by its title: parallelism.
+meshShape={'dp': n} trains the fused host path and both device sims on n
+ranks (parallel/mesh.py; one process per rank, started by the entry point
+or torchrun): each rank steps its contiguous block of the RLNumEnvs envs,
+the return-RMS and the PPO update run over all of them (rl/ppo.py), and
+the logs take every rank's episodes, so a dp=n run computes and writes
+what dp=1 does. Only rank 0 writes checkpoints, config.json, progress.csv
+and the `Updates` lines; every rank loads a resumed checkpoint. As in the
+JAX package, evaluation is not sharded, and the reward-wrapper path is
+not either: with meshShape set it raises.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ from var_tpu_torch.device import resolve_device
 from var_tpu_torch.envs import spaces as S
 from var_tpu_torch.envs.vec.factory import make_vec_envs
 from var_tpu_torch.models.policy import act, build_policy, get_value
+from var_tpu_torch.parallel.mesh import all_gather_env, broadcast_, build_mesh
 from var_tpu_torch.rl.ppo import PPO, AdamState, PPOConfig, PPOState
 from var_tpu_torch.rl.rollout_device import DeviceRolloutEngine
 from var_tpu_torch.rl.storage import RolloutStorage
@@ -46,11 +54,6 @@ from var_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from var_tpu_torch.train.pretext import PretextTrainer
 from var_tpu_torch.utils.logging import CSVLogger
 from var_tpu_torch.utils.profiling import PhaseTimer, RSSWatchdog
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP 'Modules left to port': {item})")
 
 
 class RLTrainer:
@@ -74,6 +77,25 @@ class RLTrainer:
         # (env steps, seconds) of each PPO update (rollout + update) of the
         # last trainRL; each ends at the update's metrics read
         self.update_stats = []
+        self.mesh = None  # set by trainRL under meshShape
+
+    @property
+    def lead(self) -> bool:
+        """Whether this process writes files and prints (rank 0)."""
+        return self.mesh is None or self.mesh.lead
+
+    def _logger(self):
+        """progress.csv's logger on rank 0, None on the others."""
+        if not self.lead:
+            return None
+        return CSVLogger(os.path.join(self.config.RLModelSaveDir,
+                                      "progress.csv"))
+
+    def _save_config(self):
+        cfg = self.config
+        if self.lead:
+            os.makedirs(cfg.RLModelSaveDir, exist_ok=True)
+            cfg.save_json(os.path.join(cfg.RLModelSaveDir, "config.json"))
 
     # -- frozen VAR ---------------------------------------------------------
 
@@ -85,8 +107,11 @@ class RLTrainer:
     # -- policy persistence (reference: RL.py:40-71,209-216) ----------------
 
     def save_policy(self, label):
-        """<RLModelSaveDir>/<label>/checkpoint.pt: params, Adam state, step."""
+        """<RLModelSaveDir>/<label>/checkpoint.pt: params, Adam state, step
+        (rank 0 only)."""
         path = os.path.join(self.config.RLModelSaveDir, label)
+        if not self.lead:
+            return path
         adam = self.state.opt_state
         save_checkpoint(path, {
             "params": self.policy.state_dict(),
@@ -109,6 +134,8 @@ class RLTrainer:
         params, opt_state, step = resume
         if params is not None:
             self.policy.load_state_dict(params)
+        # every rank starts from rank 0's weights
+        broadcast_(list(self.policy.state_dict().values()), self.mesh)
         self.state = self.ppo.init_state()
         if opt_state is None:
             return
@@ -128,15 +155,15 @@ class RLTrainer:
 
     # -- the fused rollout ----------------------------------------------------
 
-    def _fused_envs(self, num_envs: int):
+    def _fused_envs(self, num_envs: int, first_env: int = 0):
         cfg = self.config
         return make_vec_envs(
             env_name=cfg.RLEnvName, seed=cfg.RLEnvSeed,
             num_processes=num_envs, gamma=None, randomCollect=True,
-            config=cfg)
+            config=cfg, first_env=first_env)
 
     def _fused_engine(self, envs, raw_obs, num_steps: int, num_envs: int,
-                      deterministic: bool = False):
+                      deterministic: bool = False, mesh=None):
         cfg = self.config
         # the policy's extra observation: the arm's gripper pose, or the
         # grid's uint8 egocentric occupancy crop
@@ -152,7 +179,7 @@ class RLTrainer:
             torch.float32 if is_arm else torch.uint8, action_shape,
             action_dtype, gamma=cfg.RLGamma,
             deterministic=deterministic, generator=self.generator,
-            device=self.device)
+            device=self.device, mesh=mesh)
 
     def _build_policy(self, action_space):
         """A fresh policy from RLEnvSeed, drawn on the CPU so every device
@@ -172,15 +199,21 @@ class RLTrainer:
             raise RuntimeError("load_pretext() first: the reward needs the "
                                "frozen VAR")
         T, N = cfg.ppoNumSteps, cfg.RLNumEnvs
-        envs = self._fused_envs(N)
+        # under a mesh, host envs for this rank's block of env indices,
+        # seeded as dp=1 seeds them
+        envs_here = (slice(0, N) if self.mesh is None
+                     else self.mesh.block(N, "RLNumEnvs"))
+        envs = self._fused_envs(envs_here.stop - envs_here.start,
+                                envs_here.start)
         self._build_policy(envs.action_space)
         raw_obs = envs.reset()
-        engine = self._fused_engine(envs, raw_obs, T, N)
+        engine = self._fused_engine(envs, raw_obs, T, N, mesh=self.mesh)
         resume = (None, None, None)
         if cfg.RLModelFineTune and os.path.exists(cfg.RLModelLoadDir):
-            print("Load the weights from", cfg.RLModelLoadDir)
+            if self.lead:
+                print("Load the weights from", cfg.RLModelLoadDir)
             resume = self.load_policy_state(cfg.RLModelLoadDir)
-        self.ppo = PPO(self.policy, PPOConfig.from_config(cfg))
+        self.ppo = PPO(self.policy, PPOConfig.from_config(cfg), self.mesh)
         self._resume_state(resume)
         action = engine.init(raw_obs, init_noise)
         self.episode_rewards = deque(maxlen=10)
@@ -192,6 +225,23 @@ class RLTrainer:
         for index in np.where(done)[0]:
             self.episode_rewards.append(self.env_rewards[index])
             self.env_rewards[index] = 0.0
+
+    def _log_rollout(self, steps):
+        """Each step's (raw rewards, dones) into the episode log, in step
+        order; under a mesh, every rank's envs (gathered once per
+        rollout), so the log is dp=1's."""
+        if not steps:
+            return
+        if self.mesh is not None:
+            rew = torch.from_numpy(np.stack([r for r, _ in steps]).astype(
+                np.float32)).to(self.device)
+            done = torch.from_numpy(np.stack([d for _, d in steps]).astype(
+                np.uint8)).to(self.device)
+            rew = all_gather_env(rew, self.mesh, 1).cpu().numpy()
+            done = all_gather_env(done, self.mesh, 1).cpu().numpy() > 0
+            steps = list(zip(rew, done))
+        for raw_rew, done in steps:
+            self._log_rewards(raw_rew, done)
 
     def rollout(self, envs, engine, action, pipelined: bool = False,
                 noise: Optional[torch.Tensor] = None):
@@ -208,6 +258,7 @@ class RLTrainer:
         (action_t is the policy's draw at obs_t), but the sims apply each
         action one step late, a delay the policy cannot observe."""
         pending = None  # (handle, done) of the step not yet read back
+        logged = []  # (raw rewards, dones) of each step, in step order
         for step in range(engine.T):
             with self.timer.phase("env_step"):
                 raw_obs, env_rew, done, infos = envs.step(action)
@@ -221,15 +272,16 @@ class RLTrainer:
                     None if noise is None else noise[step])
                 if not pipelined:
                     action, raw_rew = engine.read_packed(handle)
-                    self._log_rewards(raw_rew, done)
+                    logged.append((raw_rew, done))
                     continue
                 if pending is not None:
                     action, raw_rew = engine.read_packed(pending[0])
-                    self._log_rewards(raw_rew, pending[1])
+                    logged.append((raw_rew, pending[1]))
                 pending = (handle, done)
         if pending is not None:
             action, raw_rew = engine.read_packed(pending[0])
-            self._log_rewards(raw_rew, pending[1])
+            logged.append((raw_rew, pending[1]))
+        self._log_rollout(logged)
         return action
 
     def update(self, engine, perms: Optional[torch.Tensor] = None):
@@ -254,8 +306,16 @@ class RLTrainer:
     def trainRL(self, total_steps: Optional[int] = None,
                 log_interval: Optional[int] = None):
         cfg = self.config
+        self.mesh = None
         if getattr(cfg, "meshShape", None):
-            raise _not_ported("meshShape", "parallelism")
+            if not (getattr(cfg, "RLDeviceSimRollout", False)
+                    or getattr(cfg, "fusedRollout", False)):
+                raise ValueError(
+                    "meshShape shards the fused host path and the device "
+                    "sims; the reward-wrapper path (fusedRollout=False) "
+                    "runs on one device, as in the JAX package: unset "
+                    "meshShape")
+            self.mesh = build_mesh(cfg.meshShape, self.device)
         if getattr(cfg, "RLDeviceSimRollout", False):
             return self._train_device_sim(total_steps, log_interval)
         if not getattr(cfg, "fusedRollout", False):
@@ -279,12 +339,14 @@ class RLTrainer:
         self._build_policy(action_space)
         engine = engine_cls(
             self.pretext_model, self.policy, cfg, cfg.ppoNumSteps,
-            cfg.RLNumEnvs, generator=self.generator, device=self.device)
+            cfg.RLNumEnvs, mesh=self.mesh, generator=self.generator,
+            device=self.device)
         resume = (None, None, None)
         if cfg.RLModelFineTune and os.path.exists(cfg.RLModelLoadDir):
-            print("Load the weights from", cfg.RLModelLoadDir)
+            if self.lead:
+                print("Load the weights from", cfg.RLModelLoadDir)
             resume = self.load_policy_state(cfg.RLModelLoadDir)
-        self.ppo = PPO(self.policy, PPOConfig.from_config(cfg))
+        self.ppo = PPO(self.policy, PPOConfig.from_config(cfg), self.mesh)
         self._resume_state(resume)
         return engine
 
@@ -308,15 +370,15 @@ class RLTrainer:
         log_interval = (cfg.RLLogInterval if log_interval is None
                         else log_interval)
         engine = self.setup_device_sim()
-        os.makedirs(cfg.RLModelSaveDir, exist_ok=True)
-        cfg.save_json(os.path.join(cfg.RLModelSaveDir, "config.json"))
-        T, N = engine.T, engine.N
+        self._save_config()
+        # N counts every rank's envs; the engine runs this rank's block
+        T, N = engine.T, engine.N_global
         # labels continue from the restored update counter, so a fine-tune
         # run never leaves its base's higher-numbered checkpoint as latest
         j0 = self.state.step
-        rms = init_rms(N, self.device)
+        rms = init_rms(engine.N, self.device)
         episode_rewards = deque(maxlen=10)
-        logger = CSVLogger(os.path.join(cfg.RLModelSaveDir, "progress.csv"))
+        logger = self._logger()
         start = time.time()
         num_updates = total_steps // T // N
         self.update_stats = []
@@ -324,6 +386,7 @@ class RLTrainer:
             t0 = time.perf_counter()
             with self.timer.phase("collect"):
                 rms, batch, ep_raw = engine.collect(rms)
+                ep_raw = all_gather_env(ep_raw, self.mesh)
             with self.timer.phase("ppo_update"):
                 self.state, metrics = self.ppo.update(
                     self.state, batch,
@@ -337,7 +400,8 @@ class RLTrainer:
             if (j % cfg.RLModelSaveInterval == 0 or j == num_updates - 1) \
                     and cfg.RLModelSaveDir:
                 self.save_policy("%.5i" % (j0 + j))
-            if j % log_interval == 0 and len(episode_rewards) > 1:
+            if j % log_interval == 0 and len(episode_rewards) > 1 \
+                    and logger is not None:
                 total_num_steps = (j + 1) * N * T
                 fps = int(total_num_steps / (time.time() - start))
                 print(
@@ -374,11 +438,11 @@ class RLTrainer:
                           else total_steps)
         log_interval = (cfg.RLLogInterval if log_interval is None
                         else log_interval)
-        os.makedirs(cfg.RLModelSaveDir, exist_ok=True)
-        cfg.save_json(os.path.join(cfg.RLModelSaveDir, "config.json"))
+        self._save_config()
 
         envs, engine, action = self.setup_fused()
-        T, N = engine.T, engine.N
+        # N counts every rank's envs; the engine runs this rank's block
+        T, N = engine.T, engine.N_global
         pipelined = bool(getattr(cfg, "RLPipelinedRollout", False))
         if pipelined:
             warnings.warn(
@@ -388,10 +452,10 @@ class RLTrainer:
         # labels continue from the restored update counter, so a fine-tune
         # run never leaves its base's higher-numbered checkpoint as latest
         j0 = self.state.step
-        logger = CSVLogger(os.path.join(cfg.RLModelSaveDir, "progress.csv"))
+        logger = self._logger()
         start = time.time()
         num_updates = total_steps // T // N
-        if num_updates == 0:
+        if num_updates == 0 and self.lead:
             print(f"WARNING: RLTotalSteps={total_steps} < ppoNumSteps*"
                   f"RLNumEnvs={T * N}: no PPO updates will run")
         self.update_stats = []
@@ -406,7 +470,8 @@ class RLTrainer:
                 self.save_policy("%.5i" % (j0 + j))
 
             episode_rewards = self.episode_rewards
-            if j % log_interval == 0 and len(episode_rewards) > 1:
+            if j % log_interval == 0 and len(episode_rewards) > 1 \
+                    and logger is not None:
                 total_num_steps = (j + 1) * N * T
                 fps = int(total_num_steps / (time.time() - start))
                 print(
