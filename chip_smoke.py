@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases; any failure exits non-zero and no phase is skipped:
-1. card: CUDA must be present; prints the precision flags;
+1. card: CUDA must be present; prints the precision flags and fails
+   unless TF32 and cuBLAS's bf16 reduced-precision reduction are off;
 2. build: compiles every kernel of the pretext path from var_tpu_torch/csrc
    with nvcc (sm_90a), and the host libraries (csrc/simcore.cpp, the grid
    sim's raycast; csrc/shmbuf.cpp, ShmemVecEnv's shared memory) with g++,
@@ -87,7 +88,11 @@ after the arm's device memory is released:
    steps), its device sim's collect, eval batch and update (8 envs x 10
    steps), images, occupancy crops and success bits equal; the card's
    render, occupancy crop and visibility against the host grid sim at
-   1,000 seeded states;
+   1,000 seeded states; then the fused and device-sim checks again with
+   torch.backends.cudnn.benchmark on (tools/e2e_run.py's runs may set
+   it), each after a throwaway pass so that cuDNN has chosen, and one
+   CRNN pretext step at batch 128 with the flag off and on, every gap
+   printed beside its twin at the same tolerances;
 19. where a grid device-sim collect and its update spend their time, as
    phase 14.
 
@@ -185,7 +190,9 @@ JAX package's knob) on both profiles at full width:
    env-steps/s, collect and ppo_update p50 beside phase 11's or 17's; then
    the card against the CPU at bf16 (tools/rl_check.py's bf16
    tolerances, tests/test_torch_bf16.py's): one pretext step at batch 16
-   and one fused rollout of 10 steps at 8 envs with its PPO update.
+   and one fused rollout of 10 steps at 8 envs with its PPO update; then
+   that rollout's control, the card's VAR convs reducing their partial
+   sums in bf16 (rl_check.bf16_partial_sums), which must fail them.
 
 Phase 35 runs meshShape data parallelism (var_tpu_torch/parallel/):
 35. arm pretext (one epoch of 6 steps at batch 128 on phase 4's triplets
@@ -200,6 +207,16 @@ Phase 35 runs meshShape data parallelism (var_tpu_torch/parallel/):
    held against dp=1 the same way; each dp=2 rank's kernel launches (2 a
    step, every one at (64, 101, 257)) and the kernel against its plain
    version on the rank's first input; wall time and rate of each.
+
+Phase 36 runs the last modules ported:
+36. testRepresentation to representation.png on phase 4's arm VAR (D =
+   3, the sphere), a seeded arm VAR at D = 8 (its t-SNE on the card,
+   seconds and N printed) and phase 15's ai2thor VAR, each through the
+   kernel (one launch a batch); realTimeVec on the arm's reward-wrapper
+   path through manual control and in scripted manual collection (the
+   frame file rewritten at each step, ms a frame); every number logged
+   through utils/kvlogger.py into TensorBoard events and read back with
+   utils/tb_writer.py's read_events.
 
 It then stops the processes it started (the forkserver and the resource
 tracker are stopped and waited for; a worker left running fails the run;
@@ -763,6 +780,7 @@ def card_against_cpu_phase(env="arms"):
           f"in {time.perf_counter() - t0:.2f} s", flush=True)
     if not report["ok"]:
         fail("the RL step or update differs between the card and the CPU")
+    return report
 
 
 def rl_breakdown(torch, config):
@@ -966,6 +984,56 @@ def devsim_card_against_cpu(env="arms"):
           f"{render} in {time.perf_counter() - t0:.2f} s", flush=True)
     if not (report["ok"] and render["ok"]):
         fail("the device sim differs between the card and the CPU")
+    return report
+
+
+def _gaps(report):
+    """A check report's errors (in units of their tolerances) and its
+    parameter gap, for phase 18's benchmark line."""
+    skip = ("ok", "metrics_card", "metrics_cpu", "param_atol",
+            "param_median_bound", "loss_card", "loss_cpu")
+    return {k: v for k, v in report.items() if k not in skip}
+
+
+def benchmark_hold(off):
+    """Phase 18, last: the grid's checks at float32, full width, with
+    torch.backends.cudnn.benchmark on (tools/e2e_run.py's runs may set
+    it), each after a throwaway pass on copies of the card's side so that
+    cuDNN has timed and chosen: the fused step and update and the device
+    sim (8 envs x 10 steps), and one CRNN pretext step at batch 128
+    (sound 1x600x40, through the kernel), the last also with the flag
+    off. `off` holds the fused and device-sim reports of this phase with
+    the flag off; every gap is printed beside its twin and held to the
+    same tolerances."""
+    from var_tpu_torch.config import main_config
+    from var_tpu_torch.tools.rl_check import (card_against_cpu,
+                                              device_sim_card_against_cpu,
+                                              pretext_card_against_cpu)
+
+    def cfg(**knobs):
+        c = main_config(env="ai2thor")
+        c.override(**knobs)
+        return c
+
+    t0 = time.perf_counter()
+    on = {
+        "fused": card_against_cpu(cfg(
+            RLTrain=True, ppoNumSteps=10, RLEnvMaxSteps=5,
+            vecEnvBackend="dummy"), cudnn_benchmark=True),
+        "device sim": device_sim_card_against_cpu(cfg(
+            RLTrain=True, ppoNumSteps=10, RLEnvMaxSteps=10, RLNumEnvs=8),
+            cudnn_benchmark=True)}
+    pretext = cfg(audioBackend="pallas")
+    off = dict(off, pretext=pretext_card_against_cpu(pretext))
+    on["pretext"] = pretext_card_against_cpu(pretext, cudnn_benchmark=True)
+    for name in on:
+        print(f"cudnn.benchmark [ai2thor {name}], card vs cpu: off "
+              f"{_gaps(off[name])}; on {_gaps(on[name])}", flush=True)
+    print(f"cudnn.benchmark hold in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    bad = [name for name in on if not (on[name]["ok"] and off[name]["ok"])]
+    if bad:
+        fail(f"with cudnn.benchmark on, the card differs from the CPU: {bad}")
 
 
 def devsim_breakdown(torch, config):
@@ -1058,13 +1126,15 @@ def run_profile(torch, np, mld, env, kernel):
 
     rl_trainer = rl_train(torch, np, mld, env)
     rl_eval(torch, rl_trainer, mld, env)
-    card_against_cpu_phase(env)
+    fused = card_against_cpu_phase(env)
     if env == "arms":  # the grid's profile is of its device-sim cycle
         rl_breakdown(torch, rl_trainer.config)
 
     ds_trainer = devsim_train(torch, np, mld, env)
     devsim_eval(torch, ds_trainer, mld, env)
-    devsim_card_against_cpu(env)
+    devsim = devsim_card_against_cpu(env)
+    if env == "ai2thor":
+        benchmark_hold({"fused": fused, "device sim": devsim})
     devsim_breakdown(torch, ds_trainer.config)
     del trainer, rl_trainer, ds_trainer
     gc.collect()
@@ -2247,7 +2317,7 @@ def bf16_card_against_cpu(env):
     """Phase 34's check: one pretext step (batch 16, the profile's full
     widths) and one fused rollout of 10 steps with its PPO update (8 envs,
     full width), card against CPU at bf16 (tools/rl_check.py's bf16
-    tolerances)."""
+    tolerances); then the fused check's control, which must fail them."""
     from var_tpu_torch.config import main_config
     from var_tpu_torch.tools.rl_check import (card_against_cpu,
                                               pretext_card_against_cpu)
@@ -2269,6 +2339,13 @@ def bf16_card_against_cpu(env):
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     if not (pretext["ok"] and fused["ok"]):
         fail(f"the {env} bf16 paths differ between the card and the CPU")
+    t0 = time.perf_counter()
+    control = card_against_cpu(cfg, control=True)
+    print(f"bf16 card vs cpu [{env}], the control (the card's VAR convs "
+          f"summing partial sums in bf16): {control} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if control["ok"]:
+        fail(f"the {env} bf16 check passed a route that sums in bf16")
 
 
 def bf16_phase(torch, mld):
@@ -2507,6 +2584,182 @@ def mesh_phase(torch, mld, line):
         torch.cuda.empty_cache()
 
 
+# -- phase 36: the last modules ---------------------------------------------
+
+LAST_DIR = RUN_DIR / "last"
+
+
+def _frame_counter(np):
+    """Counts and times RealTimeEmbeddingPlot.save calls (each rewrites
+    the frame file) while it is installed; returns (records, restore)."""
+    from var_tpu_torch.utils import plotting
+
+    real = plotting.RealTimeEmbeddingPlot.save
+    records = []
+
+    def save(plot, path):
+        t0 = time.perf_counter()
+        out = real(plot, path)
+        records.append((path, time.perf_counter() - t0))
+        return out
+
+    plotting.RealTimeEmbeddingPlot.save = save
+    return records, lambda: setattr(plotting.RealTimeEmbeddingPlot, "save",
+                                    real)
+
+
+def representation_png_phase(torch, np, mld, kv):
+    """Phase 36 (a): testRepresentation to representation.png on phase 4's
+    arm VAR (D = 3, the sphere), a seeded arm VAR at D = 8 (the t-SNE on
+    the card) and phase 15's ai2thor VAR, each through the kernel."""
+    from var_tpu_torch.config import gym_register, main_config
+    from var_tpu_torch.data.triplets import load_shard
+    from var_tpu_torch.train.pretext import PretextTrainer
+    from var_tpu_torch.utils.plotting import SIZE, tsne
+
+    grid_data = RUN_DIR / "ai2thor" / "data"
+    for tag, env, dim in (("arm D=3", "arms", 3), ("arm D=8", "arms", 8),
+                          ("ai2thor D=3", "ai2thor", 3)):
+        run = LAST_DIR / tag.replace(" ", "_").replace("=", "")
+        data = ARM_DATA if env == "arms" else grid_data
+        var = ARM_VAR if env == "arms" else RUN_DIR / "ai2thor" / "model" / "4"
+        cfg = main_config(env=env)
+        cfg.override(pretextDataDir=[str(data)],
+                     pretextModelSaveDir=str(run / "model"),
+                     pretextModelLoadDir=str(var), audioBackend="pallas",
+                     pretextCollection=False, pretextTrain=False,
+                     representationDim=dim, vecEnvBackend="dummy")
+        gym_register(cfg, env=env)
+        if dim != 3:  # a seeded VAR at this width, saved where it loads
+            fresh = PretextTrainer(cfg, device="cuda")
+            fresh.init_model(seed=0)
+            cfg.override(pretextModelLoadDir=fresh.save_model("seeded"))
+        mld.mel_log_dct.launches = 0
+        t0 = time.perf_counter()
+        png = PretextTrainer(cfg, device="cuda").testRepresentation()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = LAUNCHES[f"{tag} representation png"] = \
+            mld.mel_log_dct.launches
+        pts = np.load(run / "model" / "representation.npz")
+        n_items = sum(len(load_shard(str(p)))
+                      for p in (data / "train").glob("*.pickle"))
+        rows = min(n_items, cfg.plotNumBatch * cfg.pretextTestBatchSize)
+        batches = -(-rows // cfg.pretextTestBatchSize)
+        img = _read_png(np, png)
+        line = (f"representation png [{tag}]: {img.shape}, {rows} items a "
+                f"side; mel_log_dct launches {launches} over {batches} "
+                f"batches; wall {wall:.2f} s")
+        if dim > 3:  # the t-SNE alone, on the card, on the same points
+            both = np.concatenate([pts["img"][:, :-1], pts["sound"][:, :-1]])
+            t0 = time.perf_counter()
+            _, kl = tsne(both, "cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            line += (f"; t-SNE on the card: N {len(both)}, {secs:.2f} s, "
+                     f"KL {kl:.4f}")
+            kv.logkv("tsne_seconds", secs)
+        kv.logkv(f"png_wall_s/{tag}", wall)
+        print(line, flush=True)
+        if img.shape != (SIZE, SIZE, 3) or img.std() == 0 \
+                or pts["img"].shape != (rows, dim + 1) \
+                or launches != batches:
+            fail(f"bad representation plot [{tag}]")
+
+
+def realtime_phase(torch, np, mld, kv):
+    """Phase 36 (b, c): realTimeVec on the reward-wrapper path through
+    manual control (the arm, phase 4's VAR; RLManualControlLoaded follows
+    realTimeVec as in the JAX config) and in scripted manual collection:
+    the frame rewritten at each step, its wall per step."""
+    import io
+    from contextlib import redirect_stdout
+
+    from var_tpu_torch.config import gym_register, main_config
+    from var_tpu_torch.train.pretext import PretextTrainer
+    from var_tpu_torch.train.rl import RLTrainer
+
+    records, restore = _frame_counter(np)
+    try:
+        run = LAST_DIR / "realtime_rl"
+        cfg = main_config(env="arms")
+        cfg.override(realTimeVec=True, RLTrain=False, RLManualControl=True,
+                     RLManualControlLoaded=True, vecEnvBackend="dummy",
+                     RLModelSaveDir=str(run), episodeImgSaveInterval=-1,
+                     pretextModelLoadDir=str(ARM_VAR))
+        gym_register(cfg, env="arms")
+        trainer = RLTrainer(cfg, env="arms", device="cuda")
+        trainer.load_pretext()
+        commands = iter(["0.5 0", "0 -0.5", "", "-0.5 0.5", "quit"])
+        t0 = time.perf_counter()
+        with redirect_stdout(io.StringIO()):
+            trainer.manualControl(input_fn=lambda: next(commands))
+        wall = time.perf_counter() - t0
+        frame = run / "realtime_vec.png"
+        rl_frames = [r for r in records if r[0] == str(frame)]
+        ms = [1000 * t for _, t in rl_frames]
+        img = _read_png(np, frame)
+        print(f"realTimeVec [arm reward wrapper, manual control]: "
+              f"{len(rl_frames)} frame rewrites, {img.shape}; ms a frame "
+              f"p50 {statistics.median(ms):.2f}, max {max(ms):.2f}; wall "
+              f"{wall:.2f} s", flush=True)
+        kv.logkv("realtime_frame_ms_p50/reward_wrapper",
+                 statistics.median(ms))
+        if len(rl_frames) < 4 or img.std() == 0:
+            fail("realTimeVec did not rewrite the wrapper's frame each step")
+
+        records.clear()
+        run = LAST_DIR / "realtime_collect"
+        shutil.copytree(ARM_DATA, run / "data")
+        pcfg = _pretext_config(run, pretextDataDir=[str(run / "data")],
+                               pretextModelLoadDir=str(ARM_VAR),
+                               realTimeVec=True)
+        script = iter(["", "r", "", "r", "z", "", "q"])
+        t0 = time.perf_counter()
+        with redirect_stdout(io.StringIO()):
+            PretextTrainer(pcfg, device="cuda").manuallyCollectPretextData(
+                input_fn=lambda: next(script))
+        wall = time.perf_counter() - t0
+        frame = run / "model" / "realtime_vec.png"
+        ms = [1000 * t for p, t in records if p == str(frame)]
+        img = _read_png(np, frame)
+        print(f"realTimeVec [manual collection]: {len(ms)} frame rewrites "
+              f"over 3 steps and the reset, {img.shape}; ms a frame p50 "
+              f"{statistics.median(ms):.2f}; wall {wall:.2f} s", flush=True)
+        kv.logkv("realtime_frame_ms_p50/manual_collection",
+                 statistics.median(ms))
+        if len(ms) != 4 or img.std() == 0:
+            fail("realTimeVec did not rewrite the collection's frame")
+    finally:
+        restore()
+
+
+def last_modules_phase(torch, np, mld):
+    """Phase 36: the representation PNGs and realTimeVec's frames, each
+    measurement logged through KVLogger into TensorBoard events (one dump
+    a part) and read back."""
+    from var_tpu_torch.utils.kvlogger import KVLogger
+    from var_tpu_torch.utils.tb_writer import read_events
+
+    shutil.rmtree(LAST_DIR, ignore_errors=True)
+    kv = KVLogger(str(LAST_DIR / "kv"), formats=["csv", "json",
+                                                  "tensorboard"])
+    dumped = []
+    for part in (representation_png_phase, realtime_phase):
+        part(torch, np, mld, kv)
+        dumped.append(kv.dumpkvs())
+    (events,) = list((LAST_DIR / "kv" / "tb").glob("events.out.tfevents.*"))
+    back = read_events(str(events))
+    same = all(set(b[2]) == set(d) and all(
+        abs(b[2][k] - float(np.float32(v))) <= 1e-6 * max(1.0, abs(v))
+        for k, v in d.items()) for b, d in zip(back[1:], dumped))
+    print(f"KVLogger: {len(dumped)} dumps, {len(back)} TensorBoard records "
+          f"read back ({sum(len(d) for d in dumped)} scalars), equal: "
+          f"{same}", flush=True)
+    if len(back) != len(dumped) + 1 or not same:
+        fail("the KVLogger's TensorBoard events do not read back")
+
+
 def main():
     import torch
 
@@ -2521,7 +2774,11 @@ def main():
     resolve_device("cuda")
     line = card_line()
     name = torch.cuda.get_device_name(0)
-    print(f"card: {name}; precision {precision_flags()}", flush=True)
+    flags = precision_flags()
+    print(f"card: {name}; precision {flags}", flush=True)
+    if any(v is True for v in flags.values()) \
+            or flags["float32_matmul_precision"] != "highest":
+        fail(f"the precision contract is not pinned: {flags}")
 
     from concurrent.futures import ThreadPoolExecutor
 
@@ -2570,6 +2827,9 @@ def main():
     t0 = time.perf_counter()
     mesh_phase(torch, mld, line)
     print(f"phase 35 in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    last_modules_phase(torch, np, mld)
+    print(f"phase 36 in {time.perf_counter() - t0:.1f} s", flush=True)
 
     stop_children()  # before the result: nothing outlives the script
     kernel["launches_by_path"] = dict(LAUNCHES)

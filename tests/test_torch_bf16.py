@@ -5,17 +5,23 @@ same converted float32 parameters on both sides.
 At bf16 both packages follow flax's `promote_dtype`: each conv or dense
 layer of the conv stacks and the VAR heads rounds its input, kernel, bias
 and output to bf16 (8 significand bits, unit roundoff EPS = 2^-8). The
-two packages then differ only where a float32 sum of bf16 products lands
-on the other side of a bf16 rounding boundary: one bf16 step (2 EPS
-relative) in a few elements of a layer, which later layers carry on.
-JAX's own bf16 run differs from its float32 run by every rounding at once.
-Flips cascade down a stack, and the more samples, the further the tails
-reach, so each tolerance is stated in units of EPS with room over the
-largest measured; where it is compared, the port's distance to JAX's bf16
+two packages then differ only where their float32 sums of the same bf16
+products round to different bf16 values, each within
+var_tpu_torch/tools/bf16_bound.py's bound (1) of the exact product
+(tests/test_torch_kernels.py holds every layer to it): one bf16 step (2
+EPS relative) in a few elements of a layer, more steps where a sum cancels
+near zero, which later layers carry on. JAX's own bf16 run differs from
+its float32 run by every rounding at once. Flips cascade down a stack,
+and the more samples, the further the tails reach, so each tolerance is
+stated in units of EPS with room over the largest measured ((1) pushed
+through a stack comes to 40-2,000 EPS of a unit embedding, which would
+hold nothing); where it is compared, the port's distance to JAX's bf16
 result must lie well inside JAX's own bf16-vs-float32 gap. They are the
 tolerances of tools/rl_check.py's bf16 card-against-CPU checks too
 (chip_smoke.py phase 34), where cuDNN's bf16 convolutions sum in yet
-another order:
+another order, and a route that reduces the convs' partial sums in bf16
+(rl_check.bf16_partial_sums) must fail them
+(test_card_check_fails_bf16_partial_sums):
 - unit-sphere embeddings: at most EMBED_EPS = 4 EPS apart in a component.
   The head's last dense layer rounds each component to bf16, so a flip
   there alone moves it by one bf16 step (2 EPS of its magnitude); flips
@@ -594,9 +600,34 @@ def test_card_checks_rehearse_on_the_cpu(env, monkeypatch):
                       RLRecurrentSize=H, RLRecurrentInputSize=16)
     report = rl_check.card_against_cpu(cfg, card="cpu")
     assert report["ok"] and report["param_max_diff"] == 0.0
+    assert report["image_feats"] == report["goal_feats"] == 0.0
     assert rl_check.EMBED_EPS == EMBED_EPS
     # the reward comparison is in units of this file's reward bound
     steps = _reward_steps(cfg.representationDim)
     reward_err = rl_check._errs(cfg)[2]
     assert reward_err(np.float64(0.5 + steps * EPS * 0.25),
                       np.float64(0.5)) == pytest.approx(0.5)
+
+
+@pytest.mark.parametrize("env", ["arms", "ai2thor"])
+def test_card_check_fails_bf16_partial_sums(env, monkeypatch):
+    """The control of those checks: with the "card" side's VAR convs
+    reducing their partial sums in bf16 (rl_check.bf16_partial_sums, the
+    route a bf16 conv must not take), the fused check of
+    test_card_checks_rehearse_on_the_cpu comes out not ok, and on the
+    VAR's own outputs (embeddings, rewards), not only downstream. Its
+    errors are printed in units of this file's tolerances. One PPO epoch:
+    the update reads the card's buffers on both sides, so it is not what
+    the control moves."""
+    from var_tpu_torch.tools import rl_check
+
+    monkeypatch.setenv("VAR_TPU_SYNTH_CLIPS", "2")
+    _, cfg = _configs(env, computeDtype=BF16, RLTrain=True, ppoNumSteps=8,
+                      RLEnvMaxSteps=4, vecEnvBackend="dummy", RLNumEnvs=4,
+                      RLRecurrentSize=H, RLRecurrentInputSize=16,
+                      sound_dim=(1, 100, 40), ppoEpoch=1)
+    report = rl_check.card_against_cpu(cfg, card="cpu", control=True)
+    print(env, {k: v for k, v in report.items() if isinstance(v, float)})
+    assert not report["ok"]
+    assert max(report[k] for k in ("image_feats", "goal_feats", "packed",
+                                   "rewards")) > 1.0, report

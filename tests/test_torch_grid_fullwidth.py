@@ -127,7 +127,8 @@ def _configs(**extra):
 def trained_var(tmp_path_factory):
     """A JAX grid VAR trained 2 epochs on a small grid collection (the
     port's collector; the shards are byte for byte JAX's,
-    tests/test_torch_shmem.py), and both packages' audio stores."""
+    tests/test_torch_shmem.py), both packages' audio stores, and the
+    collection's directory."""
     work = tmp_path_factory.mktemp("grid_var")
     os.environ["VAR_TPU_SYNTH_CLIPS"] = "3"
     try:
@@ -149,7 +150,8 @@ def trained_var(tmp_path_factory):
     losses = jtr.trainRepresentation(log_csv=False)
     assert losses[-1] < losses[0]  # it learned
     params = jax.tree_util.tree_map(np.asarray, jtr.variables["params"])
-    return build_pretext_model(jcfg), params, jaudio, taudio
+    return (build_pretext_model(jcfg), params, jaudio, taudio,
+            str(work / "triplets"))
 
 
 _JAX_DRAWS = {}  # JAX's initial draws, made once per key in this module
@@ -228,6 +230,22 @@ def _perms(key, n, epochs):
     return np.stack(perms)
 
 
+_JAX_JITS = {}  # the replay's jitted functions, made once per policy and config
+
+
+def _jitted(jp):
+    """(the minibatch loss's jitted value-and-grad, jit(tx.update),
+    jit(optax.apply_updates)) of a var_tpu PPO, shared by every PPO of the
+    module with the same policy module and PPOConfig (the same functions),
+    so each compiles once."""
+    key = (id(jp.model), jp.cfg)
+    if key not in _JAX_JITS:
+        _JAX_JITS[key] = (jp, jax.jit(jax.value_and_grad(
+            jp._minibatch_loss, has_aux=True), static_argnums=9),
+            jax.jit(jp.tx.update), jax.jit(optax.apply_updates))
+    return _JAX_JITS[key][1:]
+
+
 def _jax_update(jp, params, batch, perms):
     """var_tpu's PPO.update (var_tpu/rl/ppo.py: mb_body over the epoch x
     minibatch index sets) run minibatch by minibatch with its own loss,
@@ -239,8 +257,9 @@ def _jax_update(jp, params, batch, perms):
     n = N // cfg.num_mini_batch
     adv = batch["returns"] - batch["value_preds"]
     adv = (adv - adv.mean()) / (adv.std(ddof=1) + 1e-5)
-    grad_fn = jax.jit(jax.value_and_grad(jp._minibatch_loss, has_aux=True),
-                      static_argnums=9)
+    # the optax chain jitted too, as inside JAX's own update: eager, each
+    # of its ops dispatches on its own, minibatch after minibatch
+    grad_fn, tx_update, apply = _jitted(jp)
     opt_state, norms, stats = jp.tx.init(params), [], []
     for env_idx in jnp.asarray(perms).reshape(-1, n):
         def take(x, axis=1):
@@ -255,8 +274,8 @@ def _jax_update(jp, params, batch, perms):
             Tb)
         norms.append(float(optax.global_norm(grads)))
         stats.append(np.asarray(aux))
-        updates, opt_state = jp.tx.update(grads, opt_state, params)
-        params = optax.apply_updates(params, updates)
+        updates, opt_state = tx_update(grads, opt_state, params)
+        params = apply(params, updates)
     mean = np.mean(stats, axis=0)
     metrics = dict(zip(("value_loss", "action_loss", "dist_entropy"), mean))
     return params, metrics, np.asarray(norms)
@@ -315,6 +334,130 @@ def test_plan_banks_are_equal_byte_for_byte():
         np.testing.assert_array_equal(got, want, err_msg=name)
 
 
+# -- F1's named layers: the first two image convs' gradient ---------------------
+
+
+TERMS_TOL = 1e-3  # 20x the largest measured (5.3e-5)
+
+
+def test_first_image_convs_gradients_are_ill_conditioned(trained_var):
+    """F1's one-step discriminator (`train-var grads`,
+    `artifacts/port_grid_var_grads_cpu_pr12.csv`) found the packages' VAR
+    gradients parting first at the grid image branch's conv 0 and conv 1
+    weights. Pinned here on a trained VAR and 8 of its collection's
+    images, for the image embedding's projection on a seeded direction,
+    is what holds whatever the BLAS, thread count or XLA version:
+    - the image branch's weight gradients are worse conditioned the
+      earlier the conv: in float64, |g| / |sum|terms|| (the norm of the
+      gradient over that of the element-wise sum of its terms'
+      magnitudes, each term an input times the gradient at the conv's
+      output) falls from conv 5 to conv 0, and lies below 0.05 at conv 0
+      and conv 1 (measured 7.4e-3 and 2.1e-2, against 0.32 at conv 5 and
+      0.7-0.77 in the head);
+    - the port's float32 gradient lies within TERMS_TOL of sum|terms| of
+      float64's at every layer: |g32 - g64| <= TERMS_TOL |sum|terms||.
+      Where a max-pool window's float32 maximum is another input than
+      float64's (counted and printed), the gradient routed through it
+      moves every layer below by about the same share of sum|terms|
+      (measured 2-5e-5 from one window of the fourth pool), which reads
+      as 1e-3 relative where the terms cancel most.
+    JAX's jitted gradient's gap is printed, not asserted: which package
+    departs, and where, depends on the state and the route."""
+    from var_tpu_torch.data.triplets import load_shard
+    from var_tpu_torch.models import encoders
+
+    var_model, var_params, _, _, data = trained_var
+    images = []
+    for name in sorted(os.listdir(os.path.join(data, "train"))):
+        images += [item["image"] for item in load_shard(
+            os.path.join(data, "train", name))]
+    img = np.stack(images[:8])
+    c = torch.randn(len(img), 3, generator=torch.Generator().manual_seed(0),
+                    dtype=torch.float64)
+    jimg, jc = jnp.asarray(img), jnp.asarray(c.numpy(), jnp.float32)
+
+    def jloss(p):
+        _, f = var_model.apply({"params": p}, jimg.astype(jnp.float32)
+                               / 255.0, method=var_model.encode_image)
+        return jnp.sum(f * jc)
+
+    params = jax.tree_util.tree_map(jnp.asarray, var_params)
+    jgrads = ai2thor_state_dict(jax.tree_util.tree_map(
+        np.asarray, jax.jit(jax.grad(jloss))(params)))
+    sd = ai2thor_state_dict(jax.tree_util.tree_map(np.asarray, var_params))
+
+    def port(dtype, calls=None):
+        """The port's gradients at `dtype`; `calls` collects each conv's
+        and dense layer's (layer, input, output) with the output's grad."""
+        model = VARPretextNet(3, "ai2thor", dtype)
+        model.load_state_dict(sd)
+        names = {id(m): n for n, m in model.named_modules()}
+
+        def recorded(plain):
+            def op(layer, x, dt=torch.float32):
+                y = plain(layer, x, dt)
+                if calls is not None:
+                    y.retain_grad()
+                    calls.append((names[id(layer)], x, y))
+                return y
+            return op
+
+        plain = (encoders.conv, encoders.dense)
+        encoders.conv, encoders.dense = (recorded(f) for f in plain)
+        try:
+            f = model.encode_image(torch.from_numpy(img).to(dtype) / 255.0)[1]
+            (f.double() * c).sum().backward()
+        finally:
+            encoders.conv, encoders.dense = plain
+        return {k: p.grad.double() for k, p in model.named_parameters()
+                if p.grad is not None}
+
+    calls = []
+    exact, got = port(torch.float64, calls), port(torch.float32)
+    ratio = {}  # |g| / sum|terms| of each layer's weight and bias, float64
+    layers = dict(VARPretextNet(3, "ai2thor").named_modules())
+    for name, x, y in calls:
+        d, x, layer = y.grad.abs(), x.detach().abs(), layers[name]
+        if isinstance(layer, torch.nn.Conv2d):
+            terms = torch.nn.grad.conv2d_weight(
+                x, layer.weight.shape, d, layer.stride, layer.padding)
+            bias_terms = d.sum((0, 2, 3))
+        else:
+            terms, bias_terms = d.t() @ x, d.sum(0)
+        for key, t in (("weight", terms), ("bias", bias_terms)):
+            ratio[f"{name}.{key}"] = float(exact[f"{name}.{key}"].norm()
+                                           / t.norm())
+    acts = {}
+    for d in (torch.float32, torch.float64):
+        x, acts[d] = torch.from_numpy(img).to(d) / 255.0, []
+        for i, (name, _, _) in enumerate(calls[:6]):
+            layer = layers[name]
+            x = torch.relu(torch.nn.functional.conv2d(
+                x, torch.from_numpy(sd[name + ".weight"].numpy()).to(d),
+                torch.from_numpy(sd[name + ".bias"].numpy()).to(d),
+                layer.stride, layer.padding))
+            if 1 <= i <= 4:
+                B, C, H, W = x.shape
+                acts[d].append(x.reshape(B, C, H // 2, 2, W // 2, 2)
+                               .permute(0, 1, 2, 4, 3, 5).reshape(-1, 4)
+                               .argmax(1))
+                x = torch.nn.functional.max_pool2d(x, 2)
+    print("port max-pool windows whose float32 argmax differs from "
+          "float64's, pools 1-4: "
+          f"{[int((a != b).sum()) for a, b in zip(*acts.values())]}")
+    assert set(ratio) == set(exact), sorted(set(exact) - set(ratio))
+    for name in sorted(exact):
+        norm = exact[name].norm()
+        rel = float((got[name] - exact[name]).norm() / norm)
+        jrel = float((jgrads[name].double() - exact[name]).norm() / norm)
+        print(f"{name}: |g|/sum|terms| {ratio[name]:.2e}; from float64: "
+              f"port {rel:.2e} ({rel * ratio[name]:.1e} of sum|terms|), "
+              f"JAX jitted {jrel:.2e}")
+        assert rel * ratio[name] <= TERMS_TOL, (name, rel, ratio[name])
+    convs = [ratio[f"img_branch.convs.{i}.weight"] for i in range(6)]
+    assert convs == sorted(convs) and max(convs[:2]) < 0.05, convs
+
+
 # -- the grid device sim ---------------------------------------------------------
 
 
@@ -323,7 +466,7 @@ def device_cycle(request, trained_var):
     """Both engines with their own goal banks, one collect from JAX's draws,
     JAX's PPO update, its replay, and the permutations."""
     n, samples = request.param
-    var_model, var_params, jaudio, taudio = trained_var
+    var_model, var_params, jaudio, taudio, _ = trained_var
     jcfg, tcfg = _configs(RLNumEnvs=n)
     jpol, params, tpol = _policies(jcfg, tcfg, n)
     patch = pytest.MonkeyPatch()
@@ -453,7 +596,7 @@ def test_fused_host_cycle_matches_jax(trained_var, monkeypatch):
     goal MFCCs the sims give it through its own CRNN, then one PPO update of
     each package's own rollout."""
     n = 8
-    var_model, var_params, _, _ = trained_var
+    var_model, var_params, _, _, _ = trained_var
     jcfg, tcfg = _configs(RLNumEnvs=n, RLTrain=True)
     jpol, params, tpol = _policies(jcfg, tcfg, n)
     os.environ["VAR_TPU_SYNTH_CLIPS"] = "3"
@@ -599,16 +742,34 @@ def _jax_var_draw(jcfg, var_key):
     return _JAX_DRAWS[key]
 
 
-def write_jax_draws(out_dir, var_key=977, policy_key=349):
+def _ulp_moved(sd, seed):
+    """Every nonzero weight of a state dict moved by one float32 ulp, up
+    or down by a sign drawn per weight from `seed`."""
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in sd.items():
+        sign = torch.randint(0, 2, v.shape, generator=g) * 2 - 1
+        bits = v.view(torch.int32) + sign.to(torch.int32)
+        out[k] = torch.where(v == 0, v, bits.view(torch.float32))
+    return out
+
+
+def write_jax_draws(out_dir, var_key=977, policy_key=349, ulp_seeds=()):
     """JAX's initial draws of the grid VAR and of the policy, converted,
-    as the port's checkpoint directories (see the comment above)."""
+    as the port's checkpoint directories (see the comment above); for
+    each of `ulp_seeds` also the VAR draw moved by one ulp per weight
+    (`_ulp_moved`), as jax_var_<key>_ulp<seed>: the VAR twins whose
+    trained scores spread F1's reading."""
     from var_tpu_torch.train.checkpoint import save_checkpoint
 
     jcfg, tcfg = _configs(RLEnvSeed=policy_key)
     params = _jax_var_draw(jcfg, var_key)["params"]
     var_dir = os.path.join(out_dir, f"jax_var_{var_key}")
-    save_checkpoint(var_dir, {"params": ai2thor_state_dict(
-        jax.tree_util.tree_map(np.asarray, params))})
+    sd = ai2thor_state_dict(jax.tree_util.tree_map(np.asarray, params))
+    save_checkpoint(var_dir, {"params": sd})
+    for seed in ulp_seeds:
+        save_checkpoint(f"{var_dir}_ulp{seed}",
+                        {"params": _ulp_moved(sd, seed)})
     _, _, tpol = _policies(jcfg, tcfg, 8)
     policy_dir = os.path.join(out_dir, f"jax_policy_{policy_key}")
     save_checkpoint(policy_dir, {"params": tpol.state_dict()})
@@ -734,11 +895,7 @@ def noise_floor(work, steps=30, var_key=977, seed=0, how="ulp"):
         np.asarray, init_pretext_params(build_pretext_model(jcfg), jcfg,
                                         jax.random.PRNGKey(var_key))["params"]))
     if how == "ulp":
-        g = torch.Generator().manual_seed(seed)
-        for k, v in draw.items():
-            sign = torch.randint(0, 2, v.shape, generator=g) * 2 - 1
-            bits = v.view(torch.int32) + sign.to(torch.int32)
-            draw[k] = torch.where(v == 0, v, bits.view(torch.float32))
+        draw = _ulp_moved(draw, seed)
     else:
         torch.set_num_threads(1)
     out = os.path.join(work, "port_ulp" if how == "ulp" else "port_1thread")
@@ -840,6 +997,104 @@ def train_var(package, work, epochs=60, var_key=977):
     tr.trainRepresentation(epoch=epochs, log_csv=False)
 
 
+def layer_grads(work, out_csv, at_step=4, var_key=977):
+    """F1's one-step discriminator: the port's recipe VAR training from
+    JAX's draw, on WORK's collection (train-var collect), to the
+    parameters after step `at_step` of epoch 0 (0-based: `at_step` + 1
+    Adam steps) and that step's batch (its images and the port's MFCC of
+    both sounds); then one gradient of the triplet loss there by JAX, by
+    the port at 4 torch threads, by the port at one thread and by the port
+    in float64. Per layer (the port's parameter names) into `out_csv`:
+    the norm of JAX's gradient, the relative JAX-port gap, the relative
+    4-1-thread gap, their ratio, and each package's gap to the port's
+    gradient with its convs and heads in float64 (its GRU in float32).
+    A layer whose packages' gap stands 10x above its thread gap is where
+    the two packages' steps part faster than a change of summation order
+    parts them. The state and batch are kept in WORK/grads_state.pt."""
+    import csv
+
+    from var_tpu.models.encoders import init_pretext_params
+
+    jcfg, tcfg, _ = _var_recipe(work, 1)
+    draw = ai2thor_state_dict(jax.tree_util.tree_map(
+        np.asarray, init_pretext_params(build_pretext_model(jcfg), jcfg,
+                                        jax.random.PRNGKey(var_key))["params"]))
+    tr = tpretext.PretextTrainer(tcfg, device="cpu")
+    tr._ensure_audio()
+    tr.model = VARPretextNet(3, "ai2thor")
+    tr.model.load_state_dict(draw)
+    seen, optimize = [], tr._optimize
+
+    def record(image, pos_feat, neg_feat, total=None):
+        loss = optimize(image, pos_feat, neg_feat, total)
+        if len(seen) == at_step:
+            seen.append((image.clone(), pos_feat.clone(), neg_feat.clone(),
+                         {k: v.detach().clone()
+                          for k, v in tr.model.state_dict().items()}))
+            raise _Stop
+        seen.append(None)
+        return loss
+
+    tr._optimize = record
+    try:
+        tr.trainRepresentation(epoch=1, log_csv=False)
+    except _Stop:
+        pass
+    image, pos, neg, sd = seen[-1]
+    torch.save({"params": sd, "image": image, "pos": pos, "neg": neg},
+               os.path.join(work, "grads_state.pt"))
+
+    def port_grads(threads, dtype=torch.float32):
+        before = torch.get_num_threads()
+        torch.set_num_threads(threads)
+        try:
+            # at float64 the convs and heads compute in float64
+            # (models/encoders.py's compute dtype; the GRU stays float32)
+            model = VARPretextNet(3, "ai2thor", dtype)
+            model.load_state_dict(sd)
+            out = model((image.to(dtype) * (1.0 / 255.0)), pos.to(dtype),
+                        neg.to(dtype))
+            loss = tpretext.triplet_margin_loss(
+                out["image_feat"], out["sound_feat_positive"],
+                out["sound_feat_negative"], tcfg.tripletMargin)
+            loss.backward()
+            return {k: p.grad.detach().clone()
+                    for k, p in model.named_parameters()}
+        finally:
+            torch.set_num_threads(before)
+
+    g4, g1 = port_grads(4), port_grads(1)
+    g64 = port_grads(4, torch.float64)  # what both are read against
+    jtr = jpretext.PretextTrainer(jcfg)
+    template = init_pretext_params(build_pretext_model(jcfg), jcfg,
+                                   jax.random.PRNGKey(0))["params"]
+    params = _jax_params_from_port(sd, template)
+    jgrads = jax.jit(jax.grad(jtr._loss_fn))(
+        params, jnp.asarray(image.numpy()), jnp.asarray(pos.numpy()),
+        jnp.asarray(neg.numpy()))
+    gj = ai2thor_state_dict(jax.tree_util.tree_map(np.asarray, jgrads))
+    rows = []
+    for name in g4:
+        ref = gj[name].double()
+        norm = max(float(ref.norm()), 1e-30)
+
+        def rel(a, b):
+            return float((a.double() - b.double()).norm()) / norm
+
+        pkg, thr = rel(g4[name], ref), rel(g4[name], g1[name])
+        rows.append([name, f"{norm:.6e}", f"{pkg:.6e}", f"{thr:.6e}",
+                     f"{pkg / max(thr, 1e-30):.3f}",
+                     f"{rel(ref, g64[name]):.6e}",
+                     f"{rel(g4[name], g64[name]):.6e}"])
+    with open(out_csv, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["layer", "jax_grad_norm", "jax_port_rel_gap",
+                    "port_4_vs_1_thread_rel_gap", "ratio",
+                    "jax_vs_float64_rel_gap", "port_vs_float64_rel_gap"])
+        w.writerows(rows)
+    return rows
+
+
 def compare_var_runs(work, out_csv, steps_csv=None):
     """WORK/var_epochs.csv (or out_csv): both packages' loss at every epoch
     and their parameters after it, at A2's bounds; and, into steps_csv,
@@ -916,6 +1171,9 @@ if __name__ == "__main__":
     draws.add_argument("out_dir")
     draws.add_argument("--var-key", type=int, default=977)
     draws.add_argument("--policy-key", type=int, default=349)
+    draws.add_argument("--ulp-seeds", type=int, nargs="*", default=(),
+                       help="also write the VAR draw moved by one ulp per "
+                       "weight under each seed's signs")
     for name in ("jax", "port"):
         log = sub.add_parser(name)
         log.add_argument("var_checkpoint")
@@ -928,7 +1186,7 @@ if __name__ == "__main__":
                          help="the port only: start from JAX's policy draw")
     tv = sub.add_parser("train-var")
     tv.add_argument("what", choices=["collect", "jax", "port", "compare",
-                                     "noise", "threads"])
+                                     "noise", "threads", "grads"])
     tv.add_argument("work")
     tv.add_argument("--epochs", type=int, default=60)
     tv.add_argument("--var-key", type=int, default=977)
@@ -942,13 +1200,18 @@ if __name__ == "__main__":
         if a.what == "compare":
             compare_var_runs(a.work, a.out or os.path.join(
                 a.work, "var_epochs.csv"), a.steps_out)
+        elif a.what == "grads":
+            for row in layer_grads(os.path.abspath(a.work), a.out or os.path.join(
+                    a.work, "layer_grads.csv")):
+                print(*row)
         elif a.what in ("noise", "threads"):
             noise_floor(os.path.abspath(a.work), a.epochs, a.var_key,
                         how="ulp" if a.what == "noise" else "threads")
         else:
             train_var(a.what, os.path.abspath(a.work), a.epochs, a.var_key)
     elif a.command == "draws":
-        print(write_jax_draws(a.out_dir, a.var_key, a.policy_key))
+        print(write_jax_draws(a.out_dir, a.var_key, a.policy_key,
+                              a.ulp_seeds))
     else:
         _log_run(a.command, a.var_checkpoint, a.out_dir, a.envs, a.updates,
                  a.seed, a.policy_init)

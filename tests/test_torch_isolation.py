@@ -1,7 +1,8 @@
 """The port stands alone: var_tpu_torch and chip_smoke.py import neither
 JAX (nor flax, optax, orbax) nor anything of var_tpu, and no pandas,
-cloudpickle, cv2, PIL or matplotlib, which the GPU machine does not have; the
-port loads its own native libraries, never the JAX package's."""
+cloudpickle, cv2, PIL, matplotlib or sklearn, which the GPU machine does
+not have; the port loads its own native libraries, never the JAX
+package's."""
 import ast
 import os
 import re
@@ -14,7 +15,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "var_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas",
-             "cloudpickle", "cv2", "PIL", "matplotlib")
+             "cloudpickle", "cv2", "PIL", "matplotlib", "sklearn")
 VAR_TPU = re.compile(r"\bvar_tpu\b(?!_torch)")
 
 
@@ -88,6 +89,18 @@ def test_parallel_modules_are_covered():
     scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
     assert {"var_tpu_torch/parallel/__init__.py",
             "var_tpu_torch/parallel/mesh.py"} <= scanned
+
+
+def test_last_modules_are_covered():
+    """The plots and realTimeVec's frames, the TensorBoard writer, the
+    key-value logger, the small utilities, the fused rollout engine with
+    host storage and the bf16 tolerance bound are among the modules
+    scanned and imported with jax, var_tpu, matplotlib and sklearn
+    blocked here."""
+    modules = set(_modules())
+    for name in ("utils.plotting", "utils.tb_writer", "utils.kvlogger",
+                 "utils.misc", "rl.rollout", "tools.bf16_bound"):
+        assert f"var_tpu_torch.{name}" in modules
 
 
 def test_every_module_imports_with_jax_and_var_tpu_blocked():

@@ -33,6 +33,7 @@ from var_tpu_torch.cli import build_config, parse_args
 from var_tpu_torch.data import audio_store as tstore
 from var_tpu_torch.data import triplets as ttriplets
 from var_tpu_torch.train import pretext as tpretext
+from var_tpu_torch.utils import plotting as tplotting
 from var_tpu_torch.train.checkpoint import save_checkpoint
 from var_tpu_torch.utils import teleop
 
@@ -279,6 +280,10 @@ def test_project_embeddings_and_test_representation_match_jax(tmp_path):
     fresh.run()
     saved = np.load(os.path.join(tcfg.pretextModelSaveDir,
                                  "representation.npz"))
+    # and the plot the JAX package writes beside it
+    with open(os.path.join(tcfg.pretextModelSaveDir, "representation.png"),
+              "rb") as f:
+        assert f.read(8) == b"\x89PNG\r\n\x1a\n"
     for key in ("img", "sound"):
         np.testing.assert_allclose(saved[key], want[key], err_msg=key, **TOL)
 
@@ -325,6 +330,24 @@ def test_manual_collection_through_run_and_realtime_refusal(tmp_path,
     tpretext.PretextTrainer(tcfg, device="cpu").run()
     (shard,) = glob.glob(os.path.join(tcfg.pretextDataDir[0], "train", "*"))
     assert len(ttriplets.load_shard(shard)) == 1
+    # realTimeVec: the live view is a frame file rewritten at each step,
+    # over the data collected above (the sphere, its points, the quiver)
     tcfg.override(realTimeVec=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*Options"):
-        tpretext.PretextTrainer(tcfg, device="cpu").run()
+    frame = os.path.join(tcfg.pretextModelSaveDir, "realtime_vec.png")
+    writes = []
+    real_save = tplotting.RealTimeEmbeddingPlot.save
+
+    def save(plot, path):
+        writes.append((path, dict(plot.scene.quivers),
+                       [len(s.xyz) for s in plot.scene.scatters]))
+        return real_save(plot, path)
+
+    monkeypatch.setattr(tplotting.RealTimeEmbeddingPlot, "save", save)
+    lines = iter(["", "", "r", "q"])
+    tpretext.PretextTrainer(tcfg, device="cpu").run()
+    assert [w[0] for w in writes] == [frame] * 3  # the reset and 2 steps
+    assert all(set(q) == {"img"} and n == [1, 1] for _, q, n in writes)
+    with open(frame, "rb") as f:
+        assert f.read(8) == b"\x89PNG\r\n\x1a\n"
+    assert len(glob.glob(os.path.join(tcfg.pretextDataDir[0], "train",
+                                      "*"))) == 2

@@ -5,9 +5,8 @@ semantics, so that a config file or a --set line means the same in both
 packages. The backend knobs at the bottom keep their names too;
 `audioBackend='pallas'` selects the port's hand-written CUDA mel-log-DCT
 kernel (var_tpu_torch/ops/mel_log_dct.py); `meshShape={'dp': n}` trains
-on n ranks (var_tpu_torch/parallel/). A knob of a path this package does
-not run (realTimeVec's live plot) is kept so that configs stay
-interchangeable; the trainer raises where one is set.
+on n ranks (var_tpu_torch/parallel/). realTimeVec's live plot is a frame
+file rewritten at each step (utils/plotting.py).
 """
 import os
 

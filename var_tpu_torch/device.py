@@ -6,6 +6,12 @@ unless `torch.backends.cudnn.allow_tf32` is False (this covers the gemm
 STFT's `conv1d` and every encoder conv), and a float32 matmul may use TF32
 when the matmul precision is lowered. TF32 keeps about three decimal
 digits, so `configure_precision` pins both to IEEE float32.
+
+At computeDtype='bfloat16' a third default matters: cuBLAS may reduce a
+bf16 product's partial sums in bf16
+(`allow_bf16_reduced_precision_reduction`, True by default). The JAX
+package's bf16 Dense sums in float32 and rounds once, so that is pinned
+off too.
 """
 from __future__ import annotations
 
@@ -15,9 +21,11 @@ import torch
 
 
 def configure_precision():
-    """IEEE float32 for convolutions and matmuls (no TF32 anywhere)."""
+    """IEEE float32 for convolutions and matmuls (no TF32 anywhere); bf16
+    matmuls sum in float32."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.set_float32_matmul_precision("highest")
 
 
@@ -25,6 +33,8 @@ def precision_flags() -> dict:
     return {
         "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
         "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "cuda.matmul.allow_bf16_reduced_precision_reduction":
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
         "float32_matmul_precision": torch.get_float32_matmul_precision(),
     }
 

@@ -25,6 +25,7 @@ and are the training paths; this one keeps the reference's protocol.
 """
 from __future__ import annotations
 
+import os
 from collections import OrderedDict
 
 import numpy as np
@@ -39,10 +40,6 @@ class VecVARReward(VecEnvWrapper):
     def __init__(self, venv, model, config, ob=False, ret=True, gamma=0.99,
                  cliprew=10.0, epsilon=1e-8, device="cpu"):
         super().__init__(venv)
-        if getattr(config, "realTimeVec", False):
-            raise NotImplementedError(
-                "realTimeVec draws with matplotlib, which the port does not "
-                "use")
         self.config = config
         self.model = model
         self.device = torch.device(device)
@@ -53,6 +50,7 @@ class VecVARReward(VecEnvWrapper):
         self.cached_goal_feat = np.zeros(
             (venv.num_envs, config.representationDim), dtype=np.float32)
         self.timer = PhaseTimer()  # 'var_reward' per step
+        self._rt_plot = None  # realTimeVec's live view, made at first use
         # the policy's extra observation: the arm's gripper pose, or the
         # grid's uint8 occupancy crop (scaled to [0, 1] like the image)
         self.extra_key = {"ArmConfig": "robot_pose",
@@ -96,11 +94,30 @@ class VecVARReward(VecEnvWrapper):
         return (img_sound + snd_snd * self.config.RLRewardSoundSound
                 + env_reward)
 
+    def _maybe_draw_realtime(self, image_feat, goal_feat):
+        """realTimeVec: env 0's image and goal embeddings as quivers on the
+        unit sphere, every step (vec_pretext_normalize.py:116-119,
+        138-141 drawArrows): the frame <RLModelSaveDir>/realtime_vec.png,
+        rewritten atomically (utils/plotting.py, headless)."""
+        if not getattr(self.config, "realTimeVec", False):
+            return
+        if self._rt_plot is None:
+            from var_tpu_torch.utils.plotting import RealTimeEmbeddingPlot
+
+            self._rt_plot = RealTimeEmbeddingPlot(
+                None, self.config.representationDim)
+        self._rt_plot.draw_arrows(image_feat, goal_feat)
+        save_dir = getattr(self.config, "RLModelSaveDir", None)
+        if save_dir:
+            os.makedirs(save_dir, exist_ok=True)
+            self._rt_plot.save(os.path.join(save_dir, "realtime_vec.png"))
+
     def processing_func(self, obs, env_reward):
         """(the policy's observation dict, the VAR reward) of one step."""
         image_feat, goal_feat, current_feat = self._get_embeddings(obs)
         reward = self._calc_reward(env_reward, image_feat, goal_feat,
                                    current_feat)
+        self._maybe_draw_realtime(image_feat, goal_feat)
         extra = obs[self.extra_key].astype(np.float32)
         if self.extra_key == "occupancy":
             extra = extra / 255.0

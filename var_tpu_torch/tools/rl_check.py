@@ -30,6 +30,14 @@ grid's `_render_numpy`, not its native `get_image`).
 
 wrapped_card_against_cpu (the reward-wrapper path): see its docstring.
 
+cudnn_benchmark=True (card_against_cpu, device_sim_card_against_cpu,
+pretext_card_against_cpu) runs the card's side with
+torch.backends.cudnn.benchmark on, as tools/e2e_run.py's runs may, after
+one throwaway pass of the same work on copies of the card's models, so
+that cuDNN has timed its algorithms at each conv shape and chosen before
+the compared pass; the tolerances are the same. The default leaves the
+flag as it is (off unless a caller set it).
+
 Tolerances: rtol = atol = 1e-4 for everything but the parameters, and
 for the ai2thor CRNN's goal embeddings rtol 1e-3 / atol 2e-4 (BASELINE.md)
 (IEEE float32 on both devices, only the order of summation differs: both checks
@@ -40,20 +48,31 @@ difference below 1e-6, as tests/test_torch_pretext.py holds an Adam step:
 Adam moves each weight by about +-lr whatever the size of its gradient, so
 a near-zero gradient that rounds to the other sign differs by 2 * lr.
 
-At computeDtype='bfloat16' the conv stacks round to bf16 (unit roundoff
-EPS = 2^-8) and the two devices' convolutions sum in another order, so a
-sum can land on the other side of a bf16 rounding boundary, and the flips
-cascade; the tolerances are tests/test_torch_bf16.py's, which states
-their reasons: embeddings within EMBED_EPS = 4 EPS a component; what
-derives from the VAR reward (raw and normalised rewards, returns, the
-return-RMS) within 2 sqrt(representationDim) EMBED_EPS of the tensor's
-largest magnitude; values, log-probs and actions within 2 EPS of it;
-losses within EPS of the larger of their size and 1; parameters within
-the same Adam bound, with a median difference of at most lr/10 per
-optimizer step.
+At computeDtype='bfloat16' the conv stacks and the VAR heads round to
+bf16 (unit roundoff EPS = 2^-8). Each bf16 product sums in float32 and
+rounds once, so it lies within tools/bf16_bound.py's bound (1) of the
+exact product of its bf16 operands (tests/test_torch_kernels.py holds
+every conv and head layer to it on the CPU and the card). The two devices
+sum in another order, so a sum can land on the other side of a bf16
+rounding boundary, and the flips carry on through later layers. The
+end-to-end tolerances are tests/test_torch_bf16.py's, which states their
+reasons: embeddings within EMBED_EPS = 4 EPS a component; what derives
+from the VAR reward (raw and normalised rewards, returns, the return-RMS)
+within 2 sqrt(representationDim) EMBED_EPS of the tensor's largest
+magnitude; values, log-probs and actions within 2 EPS of it; losses
+within EPS of the larger of their size and 1; parameters within the same
+Adam bound, with a median difference of at most lr/10 per optimizer
+step. (1) pushed through a stack bounds nothing useful: to first order it
+comes to 40-2,000 EPS of a unit embedding on seeded draws, where the
+sides lie within a few EPS of each other. So these constants stay, and
+their power is shown by a control instead: card_against_cpu(...,
+control=True) runs the card's VAR convs through bf16_partial_sums (each
+input channel's product rounded to bf16 and added in bf16, the route
+that reduces partial sums in bf16), and the check must come out not ok.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 
 import numpy as np
@@ -112,6 +131,38 @@ def _errs(cfg):
             lambda got, want: _bf16_err(got, want, steps), _bf16_loss_err)
 
 
+@contextlib.contextmanager
+def bf16_partial_sums(model):
+    """Inside, the bf16 convs of `model`'s VAR stacks (and no other
+    model's) reduce their partial sums in bf16: each input channel's
+    product rounded to bf16, then added up in bf16, in channel order. The
+    check's control: a route that sums this way must fail the bf16
+    tolerances."""
+    import torch.nn.functional as F
+
+    from var_tpu_torch.models import encoders
+
+    layers = {id(m) for m in model.modules()
+              if isinstance(m, torch.nn.Conv2d)}
+    plain = encoders.conv
+
+    def conv(layer, x, dtype=torch.float32):
+        if id(layer) not in layers or dtype != torch.bfloat16:
+            return plain(layer, x, dtype)
+        x, w = x.to(dtype), layer.weight.to(dtype)
+        y = F.conv2d(x[:, :1], w[:, :1], None, layer.stride, layer.padding)
+        for c in range(1, x.shape[1]):
+            y = y + F.conv2d(x[:, c:c + 1], w[:, c:c + 1], None,
+                             layer.stride, layer.padding)
+        return y + layer.bias.to(dtype)[:, None, None]
+
+    encoders.conv = conv
+    try:
+        yield
+    finally:
+        encoders.conv = plain
+
+
 def _var(cfg, seed: int):
     """The profile's VAR from `seed`, frozen."""
     from var_tpu_torch.models.encoders import build_pretext_model
@@ -120,11 +171,54 @@ def _var(cfg, seed: int):
         torch.Generator().manual_seed(seed)).eval().requires_grad_(False)
 
 
-def card_against_cpu(config, seed: int = 0, card: str = "cuda") -> dict:
+@contextlib.contextmanager
+def _cudnn_benchmark(on: bool):
+    """torch.backends.cudnn.benchmark set to `on` (when True) inside."""
+    before = torch.backends.cudnn.benchmark
+    if on:
+        torch.backends.cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = before
+
+
+def _warm_fused(cfg, engine, raw_obs, noise, T, N, card, seed):
+    """The throwaway pass of cudnn_benchmark: a rollout of T steps and one
+    PPO update on copies of the card's engine and policy, fed the first
+    observation at every step."""
+    from var_tpu_torch.rl.ppo import PPO, PPOConfig
+
+    engine = copy.deepcopy(engine)
+    ppo = PPO(engine.policy, PPOConfig.from_config(cfg))
+    engine.init(raw_obs, noise.to(card))
+    zeros = np.zeros(N, np.float32)
+    for t in range(T):
+        engine.step(t, raw_obs, zeros, np.zeros(N, bool), zeros + 1.0,
+                    noise.to(card))
+    engine.compute_returns(cfg.ppoUseGAE, cfg.RLGamma, cfg.ppoGAELambda,
+                           cfg.RLUseProperTimeLimits)
+    batch = engine.device_batch()
+    ppo.update(ppo.init_state(), batch, ppo.draw_perms(
+        batch, torch.Generator(device=card).manual_seed(seed)))
+
+
+def card_against_cpu(config, seed: int = 0, card: str = "cuda",
+                     cudnn_benchmark: bool = False,
+                     control: bool = False) -> dict:
     """Runs the comparison; returns the worst errors (in units of the
     tolerance, see _err), the parameter differences and `ok`. `card` is
     the device held against the CPU (the CPU itself rehearses the check
-    where there is no card)."""
+    where there is no card). control=True (bf16 only) runs the card's VAR
+    convs through bf16_partial_sums: the report must then be not ok."""
+    if control and not _bf16(config):
+        raise ValueError("the control route is a bf16 one")
+    with _cudnn_benchmark(cudnn_benchmark):
+        return _card_against_cpu(config, seed, card, cudnn_benchmark,
+                                 control)
+
+
+def _card_against_cpu(config, seed, card, warm, control) -> dict:
     from var_tpu_torch.config import gym_register
     from var_tpu_torch.device import resolve_device
     from var_tpu_torch.envs.spaces import Discrete
@@ -166,44 +260,53 @@ def card_against_cpu(config, seed: int = 0, card: str = "cuda") -> dict:
         return torch.randn((N,) + envs.action_space.shape,
                            generator=noise_gen)
 
-    err, _, reward_err, _ = _errs(cfg)
+    err, embedding_err, reward_err, _ = _errs(cfg)
     errs = {"packed": 0.0, "values": 0.0, "log_probs": 0.0, "rewards": 0.0}
-    eps = noise()
-    action = dev_engine.init(raw_obs, eps.to(card))
-    errs["packed"] = err(cpu_engine.init(raw_obs, eps), action)
-    for t in range(T):
-        raw_obs, env_rew, done, infos = envs.step(action)
-        bad = np.asarray([0.0 if "bad_transition" in i else 1.0
-                          for i in infos], np.float32)
+    if warm:
+        _warm_fused(cfg, dev_engine, raw_obs, noise(), T, N, card, seed)
+        noise_gen.manual_seed(seed + 2)
+    with (bf16_partial_sums(dev_engine.var_model) if control
+          else contextlib.nullcontext()):
         eps = noise()
-        action, rew = dev_engine.step(t, raw_obs, env_rew, done, bad,
-                                      eps.to(card))
-        c_action, c_rew = cpu_engine.step(t, raw_obs, env_rew, done, bad,
-                                          eps)
-        errs["packed"] = max(errs["packed"], err(c_action, action),
-                             reward_err(c_rew, rew))
-    envs.close()
-    dev_buf, host = dev_engine.buffers, cpu_engine.buffers
-    for key, name, compare in (
-            ("values", "values", err),
-            ("log_probs", "action_log_probs", err),
-            ("rewards", "rewards", reward_err)):
-        errs[key] = compare(getattr(host, name),
-                            getattr(dev_buf, name).cpu())
+        action = dev_engine.init(raw_obs, eps.to(card))
+        errs["packed"] = err(cpu_engine.init(raw_obs, eps), action)
+        for t in range(T):
+            raw_obs, env_rew, done, infos = envs.step(action)
+            bad = np.asarray([0.0 if "bad_transition" in i else 1.0
+                              for i in infos], np.float32)
+            eps = noise()
+            action, rew = dev_engine.step(t, raw_obs, env_rew, done, bad,
+                                          eps.to(card))
+            c_action, c_rew = cpu_engine.step(t, raw_obs, env_rew, done, bad,
+                                              eps)
+            errs["packed"] = max(errs["packed"], err(c_action, action),
+                                 reward_err(c_rew, rew))
+        envs.close()
+        dev_buf, host = dev_engine.buffers, cpu_engine.buffers
+        compared = [("values", "values", err),
+                    ("log_probs", "action_log_probs", err),
+                    ("rewards", "rewards", reward_err)]
+        if _bf16(cfg):  # the VAR's embeddings the rewards are made of
+            compared += [("image_feats", "obs_image_feat", embedding_err),
+                         ("goal_feats", "obs_goal_feat", embedding_err)]
+        for key, name, compare in compared:
+            errs[key] = compare(getattr(host, name),
+                                getattr(dev_buf, name).cpu())
 
-    # the same batch on both sides: the card's buffers
-    with torch.no_grad():
-        for name, x in dev_buf.as_dict().items():
-            getattr(host, name).copy_(x.cpu())
-    batches = []
-    for _, engine, _ in sides:
-        engine.compute_returns(cfg.ppoUseGAE, cfg.RLGamma, cfg.ppoGAELambda,
-                               cfg.RLUseProperTimeLimits)
-        batches.append(engine.device_batch())
-    errs["returns"] = reward_err(batches[1]["returns"],
-                                 batches[0]["returns"].cpu())
-    return _update_report(cfg, [(s[2], b) for s, b in zip(sides, batches)],
-                          card, seed, errs)
+        # the same batch on both sides: the card's buffers
+        with torch.no_grad():
+            for name, x in dev_buf.as_dict().items():
+                getattr(host, name).copy_(x.cpu())
+        batches = []
+        for _, engine, _ in sides:
+            engine.compute_returns(cfg.ppoUseGAE, cfg.RLGamma,
+                                   cfg.ppoGAELambda, cfg.RLUseProperTimeLimits)
+            batches.append(engine.device_batch())
+        errs["returns"] = reward_err(batches[1]["returns"],
+                                     batches[0]["returns"].cpu())
+        return _update_report(cfg, [(s[2], b) for s, b in zip(sides,
+                                                                batches)],
+                              card, seed, errs)
 
 
 def _update_report(cfg, sides, card, seed, errs) -> dict:
@@ -256,12 +359,19 @@ def _to(draws, device):
 
 
 def device_sim_card_against_cpu(config, seed: int = 0, card: str = "cuda",
-                                audio=None) -> dict:
+                                audio=None, cudnn_benchmark: bool = False
+                                ) -> dict:
     """The device-sim comparison (see the module docstring): returns the
     worst errors in units of the tolerance, the count of image pixels and
     gripper coordinates that differ, the success bits that differ, the
     parameter differences and `ok`. `audio` (an AudioStore) is shared by
     both engines when given."""
+    with _cudnn_benchmark(cudnn_benchmark):
+        return _device_sim_card_against_cpu(config, seed, card, audio,
+                                            cudnn_benchmark)
+
+
+def _device_sim_card_against_cpu(config, seed, card, audio, warm) -> dict:
     from var_tpu_torch.data.audio_store import AudioStore
     from var_tpu_torch.device import resolve_device
     from var_tpu_torch.models.policy import build_policy
@@ -299,6 +409,14 @@ def device_sim_card_against_cpu(config, seed: int = 0, card: str = "cuda",
     errs = {"goal_bank": embedding_err(c_eng.goal_bank,
                                        d_eng.goal_bank.cpu())}
     c_eng.goal_bank = d_eng.goal_bank.cpu()
+
+    if warm:  # a throwaway collect and update on copies of the card's side
+        engine = copy.deepcopy(d_eng)
+        _, batch, _ = engine.collect(init_rms(N, card),
+                                     _to(_draws_copy(c_eng), card))
+        ppo = PPO(engine.policy, PPOConfig.from_config(cfg))
+        ppo.update(ppo.init_state(), batch, ppo.draw_perms(
+            batch, torch.Generator(device=card).manual_seed(seed)))
 
     # draws made on the CPU, the same on both sides
     draws = c_eng.draw_collect()
@@ -341,6 +459,16 @@ def device_sim_card_against_cpu(config, seed: int = 0, card: str = "cuda",
     report.update(mismatch, successes=int(d_succ.sum()))
     report["ok"] = report["ok"] and not any(mismatch.values())
     return report
+
+
+def _draws_copy(engine):
+    """A collect's draws from a copy of `engine`'s generator, leaving the
+    engine's own stream where it was."""
+    state = engine.generator.get_state()
+    try:
+        return engine.draw_collect()
+    finally:
+        engine.generator.set_state(state)
 
 
 def _crnn_err(got, want) -> float:
@@ -501,8 +629,8 @@ def wrapped_card_against_cpu(config, seed: int = 0, card: str = "cuda"
     return _update_report(cfg, sides, card, seed, errs)
 
 
-def pretext_card_against_cpu(config, seed: int = 0, card: str = "cuda"
-                             ) -> dict:
+def pretext_card_against_cpu(config, seed: int = 0, card: str = "cuda",
+                             cudnn_benchmark: bool = False) -> dict:
     """One pretext step (`_train_step_indexed`: the gathers, both sounds'
     MFCC through config.audioBackend, the encoders at config.computeDtype,
     the triplet loss, L2 Adam) on the card and on the CPU from the same
@@ -511,7 +639,6 @@ def pretext_card_against_cpu(config, seed: int = 0, card: str = "cuda"
     parameters at the Adam-step tolerance. Returns the report with `ok`."""
     from var_tpu_torch.data.audio_store import AudioStore
     from var_tpu_torch.device import resolve_device
-    from var_tpu_torch.train.pretext import PretextTrainer
 
     cfg = config
     resolve_device(card)
@@ -526,19 +653,31 @@ def pretext_card_against_cpu(config, seed: int = 0, card: str = "cuda"
     idx = [torch.from_numpy(a.astype(bool if a.dtype == bool else np.int64))
            for a in (np.arange(B), *pos, *neg)]
     sides = []  # (loss, params): the card, then the CPU
-    for dev in (card, "cpu"):
-        trainer = PretextTrainer(cfg, device=dev, audio=audio)
-        trainer._ensure_audio()
-        trainer.init_model(seed)
-        trainer.setup_optimizer(steps_per_epoch=1)
-        put = {"images": images, "wav": bank, "len": lengths}
-        loss = trainer._train_step_indexed(
-            {k: torch.from_numpy(v).to(dev) for k, v in put.items()},
-            *(a.to(dev) for a in idx))
-        sides.append((float(loss), {k: v.detach().cpu() for k, v in
-                                    trainer.model.state_dict().items()}))
-    (d_loss, d_params), (c_loss, c_params) = sides
+    # with cudnn_benchmark, a throwaway step on the card first
+    devices = (card, card, "cpu") if cudnn_benchmark else (card, "cpu")
+    with _cudnn_benchmark(cudnn_benchmark):
+        for dev in devices:
+            sides.append(_pretext_step(cfg, dev, audio, seed, images, bank,
+                                       lengths, idx))
+    (d_loss, d_params), (c_loss, c_params) = sides[-2:]
     report = _params_report(cfg, {"loss": _errs(cfg)[3](c_loss, d_loss)},
                             d_params, c_params, cfg.pretextLR, 1)
     report.update(loss_card=d_loss, loss_cpu=c_loss)
     return report
+
+
+def _pretext_step(cfg, dev, audio, seed, images, bank, lengths, idx):
+    """One _train_step_indexed on `dev` from the seeded initial state:
+    (loss, parameters on the CPU)."""
+    from var_tpu_torch.train.pretext import PretextTrainer
+
+    trainer = PretextTrainer(cfg, device=dev, audio=audio)
+    trainer._ensure_audio()
+    trainer.init_model(seed)
+    trainer.setup_optimizer(steps_per_epoch=1)
+    put = {"images": images, "wav": bank, "len": lengths}
+    loss = trainer._train_step_indexed(
+        {k: torch.from_numpy(v).to(dev) for k, v in put.items()},
+        *(a.to(dev) for a in idx))
+    return float(loss), {k: v.detach().cpu()
+                         for k, v in trainer.model.state_dict().items()}

@@ -30,8 +30,12 @@ are summed over the ranks before Adam, so every rank steps identically and
 the run computes what dp=1 computes. Only rank 0 writes checkpoints,
 config.json and progress.csv.
 
-testRepresentation writes the embedding points to representation.npz (the
-PNG plot draws with matplotlib, which the port does not use).
+testRepresentation draws the embeddings to representation.png, as the JAX
+package does, through utils/plotting.py (numpy and torch; the t-SNE of
+representationDim > 3 runs on the trainer's device), and keeps the points
+beside it in representation.npz. realTimeVec's live view during manual
+collection is a frame file, <pretextModelSaveDir>/realtime_vec.png,
+rewritten at each step.
 """
 from __future__ import annotations
 
@@ -506,7 +510,11 @@ class PretextTrainer:
 
     def trainRepresentation(self, epoch: Optional[int] = None,
                             lr: Optional[float] = None, start_ep: int = 0,
-                            dataset=None, log_csv: bool = True):
+                            dataset=None, log_csv: bool = True,
+                            plot: bool = False):
+        """With `plot`, the embeddings are drawn every
+        config.plotRepresentation epochs (representation_ep<N>.png) and
+        after the last (representation.png), as the JAX package's."""
         cfg = self.config
         epoch = cfg.pretextEpoch if epoch is None else epoch
         self.mesh = None
@@ -547,6 +555,10 @@ class PretextTrainer:
         loss_list = []
         self.epoch_stats = []
         for ep in range(epoch):
+            if (plot and self.lead and cfg.plotRepresentation > 0 and ep > 0
+                    and ep % cfg.plotRepresentation == 0):
+                self.plotRepresentation(ds, out_path=os.path.join(
+                    cfg.pretextModelSaveDir, f"representation_ep{ep}.png"))
             t_ep = time.perf_counter()
             if bank is None:
                 losses, n = self._run_epoch_streaming(
@@ -579,6 +591,8 @@ class PretextTrainer:
             print("results saved to", save_path)
         if self.lead:
             print("Pretext Training Complete")
+        if plot and self.lead:
+            self.plotRepresentation(ds)
         return loss_list
 
     # -- data collection -----------------------------------------------------
@@ -681,11 +695,29 @@ class PretextTrainer:
         return {"img": np.concatenate(img_pts, axis=0),
                 "sound": np.concatenate(sound_pts, axis=0)}
 
+    def plotRepresentation(self, dataset, out_path: Optional[str] = None,
+                           points: Optional[dict] = None) -> str:
+        """The embeddings of `dataset` (or `points`) drawn as the JAX
+        package's plot: the unit sphere at representationDim <= 3, else
+        their t-SNE on the trainer's device; written to `out_path`
+        (default <pretextModelSaveDir>/representation.png)."""
+        from var_tpu_torch.utils.plotting import plot_representation
+
+        cfg = self.config
+        pts = self.project_embeddings(dataset) if points is None else points
+        out_path = out_path or os.path.join(cfg.pretextModelSaveDir,
+                                            "representation.png")
+        plot_representation(pts, cfg.representationDim, out_path,
+                            device=self.device)
+        print("representation plot saved to", out_path)
+        return out_path
+
     def testRepresentation(self, dataset=None):
         """pretextTestMethod 'plot' (the arm profile, which lists no
-        method, takes it too): the points the JAX package's plot draws,
-        written to <pretextModelSaveDir>/representation.npz ('img' and
-        'sound', each (N, D+1) with the label column); returns its path."""
+        method, takes it too): the plot at
+        <pretextModelSaveDir>/representation.png, whose path it returns,
+        and its points beside it in representation.npz ('img' and 'sound',
+        each (N, D+1) with the label column)."""
         cfg = self.config
         method = getattr(cfg, "pretextTestMethod", "plot")
         if method != "plot":
@@ -700,33 +732,39 @@ class PretextTrainer:
         path = os.path.join(cfg.pretextModelSaveDir, "representation.npz")
         np.savez(path, img=pts["img"], sound=pts["sound"])
         print("representation points saved to", path)
-        return path
+        return self.plotRepresentation(ds, points=pts)
 
     # -- manual collection -----------------------------------------------------
 
     def manuallyCollectPretextData(self, input_fn=None,
-                                   max_steps: Optional[int] = None):
+                                   max_steps: Optional[int] = None,
+                                   realtime_plot=None):
         """Manual triplet collection on one pretext sim. Commands from
         `input_fn` (default: single keys on a TTY, else lines): any other
         command steps the sim, 'r' stores the current pair, 'z' flushes
         the stored pairs to a timestamped shard, 'q'/'quit' or the end of
         input stops; the last pairs are flushed on exit. Returns the last
-        shard's path (None if nothing was left to flush)."""
+        shard's path (None if nothing was left to flush).
+
+        With config.realTimeVec the current image embedding is drawn as a
+        quiver on the representation sphere over the collected data, the
+        frame <pretextModelSaveDir>/realtime_vec.png rewritten at each
+        step (utils/plotting.py::RealTimeEmbeddingPlot, headless)."""
         from var_tpu_torch.envs.core import make
         from var_tpu_torch.utils.teleop import make_input_fn
 
         cfg = self.config
-        if cfg.realTimeVec:
-            raise NotImplementedError(
-                "realTimeVec draws with matplotlib, which the port does not "
-                "use (ROADMAP 'Modules left to port': Options that still "
-                "raise)")
         self._ensure_audio()
         env = make(cfg.pretextEnvName)
         env.unwrapped.audio = self.audio
         env.seed(cfg.pretextEnvSeed)
         input_fn = input_fn or make_input_fn("collect [step|r|z|quit]> ")
+        rt_plot = realtime_plot
+        if cfg.realTimeVec and rt_plot is None:
+            rt_plot = self._init_realtime_plot()
         obs = env.reset()
+        if rt_plot is not None:
+            self._draw_realtime(rt_plot, obs, env)
         steps = 0
         while max_steps is None or steps < max_steps:
             try:
@@ -749,9 +787,45 @@ class PretextTrainer:
             steps += 1
             if done:
                 obs = env.reset()
+            if rt_plot is not None:
+                self._draw_realtime(rt_plot, obs, env)
         path = env.unwrapped.saveManualPairs()
+        if rt_plot is not None:
+            rt_plot.close()
         env.close()
         return path
+
+    def _init_realtime_plot(self):
+        """The live view's background: the collected data projected
+        through the loaded VAR (a fresh one when none is saved yet)."""
+        from var_tpu_torch.utils.plotting import RealTimeEmbeddingPlot
+
+        cfg = self.config
+        if self.model is None:
+            if os.path.exists(cfg.pretextModelLoadDir):
+                self.loadPretextModel()
+            else:
+                self.init_model()
+        self.model.eval()
+        pts = None
+        try:
+            ds = load_env_data(cfg, self.audio)
+            if len(ds):
+                pts = self.project_embeddings(ds)
+        except (FileNotFoundError, RuntimeError):
+            pass  # no collected data yet: the bare sphere
+        return RealTimeEmbeddingPlot(pts, cfg.representationDim)
+
+    @torch.no_grad()
+    def _draw_realtime(self, rt_plot, obs, env):
+        image = self._put(np.asarray(obs["image"])[None]).float() * (
+            1.0 / 255.0)
+        img_f = self.model.encode_image(image)[1]
+        rt_plot.draw_arrows(img_f.cpu().numpy(), None,
+                            text=f"pairs {len(env.unwrapped.saved_pairs)}")
+        os.makedirs(self.config.pretextModelSaveDir, exist_ok=True)
+        rt_plot.save(os.path.join(self.config.pretextModelSaveDir,
+                                  "realtime_vec.png"))
 
     # -- mode dispatch ---------------------------------------------------------
 
