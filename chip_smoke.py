@@ -11,8 +11,9 @@ Phases; any failure exits non-zero and no phase is skipped:
    sim's raycast; csrc/shmbuf.cpp, ShmemVecEnv's shared memory) with g++,
    all started together, and prints the build times;
 3. each kernel against its plain PyTorch version on the card, at the arm
-   path's shape (128, 101, 257), a dp=2 rank's share of it (64, 101, 257),
-   the ai2thor path's (128, 601, 257), the
+   path's shape (128, 101, 257), a dp=2 rank's share of it (64, 101, 257)
+   and a dp=4 rank's (32, 101, 257), the ai2thor path's (128, 601, 257)
+   and a dp=4 rank's share of it (32, 601, 257), the
    pos + neg batch (256, 601, 257), a short last unit (8, 601, 257) and
    the n_fft-1024 presets, in both input layouts (the gemm STFT's view,
    contiguous), at rtol = atol = 1e-4, with NaN and inf rows; then its
@@ -20,7 +21,8 @@ Phases; any failure exits non-zero and no phase is skipped:
    launch overhead stays out): cold, rotating over > 100 MB of inputs so
    each call reads device memory, and warm, one input back to back as on
    the path; the wrapper's host time per call; at the arm and ai2thor
-   shapes the plain version's times beside them, and the card's bound;
+   shapes and the dp ranks' the plain version's times beside them, and
+   the card's bound;
 4. the slice: `python -m var_tpu_torch.pretext`'s main at full arm width
    (batch 128, image 3x96x96, sound 1x100x40, representationDim 3,
    synthetic audio) with audioBackend='pallas': collect, then 5 epochs of
@@ -218,6 +220,14 @@ Phase 36 runs the last modules ported:
    through utils/kvlogger.py into TensorBoard events and read back with
    utils/tb_writer.py's read_events.
 
+Phase 37 runs meshShape across cards (var_tpu_torch/tools/mesh_cards.py):
+37. with two or more cards visible, the tool over all of them (rank r on
+   cuda:r, NCCL): every check at dp=N against dp=1 on cuda:0, through the
+   entry points' spawn and under torchrun, each rank's parameters bit for
+   bit against rank 0's, each rank's first kernel input against the plain
+   version, the entry points as a user starts them, and the rates at dp =
+   1, 2, ..., N; with one card it prints that it needs two or more.
+
 It then stops the processes it started (the forkserver and the resource
 tracker are stopped and waited for; a worker left running fails the run;
 this runs on failure too), prints the card's name and power limit as
@@ -277,11 +287,15 @@ def peaks(name: str):
 # presets (NSynth/UrbanSound)
 CASES = (("main", "GoogleCommand", 128, 100),
          ("main dp=2 rank", "GoogleCommand", 64, 100),
+         ("main dp=4 rank", "GoogleCommand", 32, 100),
          ("ai2thor", "FSC", 128, 600),
+         ("ai2thor dp=4 rank", "FSC", 32, 600),
          ("ai2thor pos+neg", "FSC", 256, 600),
          ("ai2thor short unit", "FSC", 8, 600),
          ("n_fft 1024", "NSynth", 8, 100))
-TIMED_PLAIN = ("main", "main dp=2 rank", "ai2thor")  # the paths' shapes
+# the paths' shapes, a dp=4 rank's share of each profile's batch among them
+TIMED_PLAIN = ("main", "main dp=2 rank", "main dp=4 rank", "ai2thor",
+               "ai2thor dp=4 rank")
 COLD_BYTES = 100e6  # rotating inputs this large cannot stay in the 50 MB L2
 _spin = {}
 
@@ -2760,6 +2774,28 @@ def last_modules_phase(torch, np, mld):
         fail("the KVLogger's TensorBoard events do not read back")
 
 
+# -- phase 37: meshShape across cards ------------------------------------------
+
+
+def mesh_cards_phase(torch):
+    """Phase 37: tools/mesh_cards.py over every visible card, or one line
+    where there is one card. Its kernel launches join the kernels line."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"phase 37: meshShape across cards needs two or more cards; "
+              f"{n} visible", flush=True)
+        return
+    from var_tpu_torch.tools import mesh_cards
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep = mesh_cards.run(str(RUN_DIR / "mesh_cards"), n)
+    for k, v in rep["launches"].items():
+        LAUNCHES[f"mesh_cards {k}"] = v
+    if not rep["ok"]:
+        fail("phase 37: a mesh_cards check failed")
+
+
 def main():
     import torch
 
@@ -2830,6 +2866,9 @@ def main():
     t0 = time.perf_counter()
     last_modules_phase(torch, np, mld)
     print(f"phase 36 in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    mesh_cards_phase(torch)
+    print(f"phase 37 in {time.perf_counter() - t0:.1f} s", flush=True)
 
     stop_children()  # before the result: nothing outlives the script
     kernel["launches_by_path"] = dict(LAUNCHES)

@@ -709,17 +709,18 @@ def test_fused_host_cycle_matches_jax(trained_var, monkeypatch):
 # the two packages' gap is read against.
 
 
-def _jax_params_from_port(sd, template):
-    """The inverse of convert.ai2thor_state_dict: every JAX leaf found in
-    the port's tensors by converting a probe (the leaf's element indices)
-    through the forward map."""
+def _jax_params_from_port(sd, template, forward=ai2thor_state_dict):
+    """The inverse of a convert.py map (`forward`, by default
+    ai2thor_state_dict): every JAX leaf found in the port's tensors by
+    converting a probe (the leaf's element indices) through the forward
+    map."""
     leaves, treedef = jax.tree_util.tree_flatten(template)
     out = []
     for i, leaf in enumerate(leaves):
         probe = [np.zeros(np.shape(x), np.float64) for x in leaves]
         probe[i] = np.arange(1, probe[i].size + 1,
                              dtype=np.float64).reshape(probe[i].shape)
-        fwd = ai2thor_state_dict(jax.tree_util.tree_unflatten(treedef, probe))
+        fwd = forward(jax.tree_util.tree_unflatten(treedef, probe))
         value = np.zeros(probe[i].size, np.float32)
         for name, t in fwd.items():
             where = t.double().numpy().ravel()
@@ -808,14 +809,42 @@ def test_jax_draws_start_the_port_through_its_knobs(tmp_path):
         assert torch.equal(got[k], v), k
 
 
+def jax_policy_to_port(params, out_dir, tcfg):
+    """JAX's policy params written as the port's checkpoint directory
+    `out_dir` (params only, as a fine-tune start or for the port's
+    evaluators), with the port's config snapshot beside it in the parent
+    directory; the round trip back to JAX's leaves is asserted exact."""
+    from var_tpu_torch.train.checkpoint import save_checkpoint
+
+    params = jax.tree_util.tree_map(np.asarray, params)
+    sd = ai2thor_policy_state_dict(params)
+    back = _jax_params_from_port(sd, params, ai2thor_policy_state_dict)
+    for (path, want), got in zip(
+            jax.tree_util.tree_flatten_with_path(params)[0],
+            jax.tree_util.tree_leaves(back)):
+        assert np.array_equal(np.asarray(got), want), path
+    save_checkpoint(out_dir, {"params": sd})
+    tcfg.save_json(os.path.join(os.path.dirname(out_dir), "config.json"))
+    return out_dir
+
+
 def _log_run(package, var_dir, out_dir, envs, updates, seed,
-             policy_init="own"):
+             policy_init="own", save_at=(), **extra):
+    """`updates` PPO updates of either package on the grid device sim at
+    the recipe's knobs from the VAR checkpoint `var_dir`, logging every
+    update to OUT_DIR/progress.csv. With `save_at`, the policy after each
+    listed update count n is saved as label n - 1 (the trainers' label
+    is the index of the update just done); JAX's is also written as the
+    port's checkpoint directory OUT_DIR/port/<label>
+    (jax_policy_to_port). `extra` knobs go to both packages' configs."""
     from var_tpu_torch.train.checkpoint import load_checkpoint
 
     knobs = dict(RLNumEnvs=envs, RLDeviceSimRollout=True, RLEnvSeed=seed,
-                 RLTrain=True, RLLogInterval=1, RLModelSaveInterval=10 ** 6,
-                 RLModelSaveDir=str(out_dir))
+                 RLTrain=True, RLLogInterval=1,
+                 RLModelSaveInterval=1 if save_at else 10 ** 6,
+                 RLModelSaveDir=str(out_dir), **extra)
     jcfg, tcfg = _configs(**knobs)
+    tcfg.override(pretextModelLoadDir=os.path.abspath(var_dir))
     sd = load_checkpoint(var_dir)["params"]
     if package == "jax":
         from var_tpu.models.encoders import init_pretext_params
@@ -839,7 +868,22 @@ def _log_run(package, var_dir, out_dir, envs, updates, seed,
         var = VARPretextNet(3, "ai2thor")
         var.load_state_dict(sd)
         trainer.pretext_model = var.eval().requires_grad_(False)
-    trainer.trainRL(total_steps=updates * envs * T)
+    if save_at:
+        wanted = {"%.5i" % (n - 1) for n in save_at}
+        save = trainer.save_policy
+
+        def save_policy(label):
+            if label not in wanted:
+                return None
+            path = save(label)
+            if package == "jax":
+                jax_policy_to_port(trainer.state.params, os.path.join(
+                    str(out_dir), "port", label), tcfg)
+            return path
+
+        trainer.save_policy = save_policy
+    trainer.trainRL(total_steps=updates * envs * tcfg.ppoNumSteps)
+    return trainer
 
 
 def _var_recipe(work, epochs):
@@ -1162,6 +1206,134 @@ def compare_var_runs(work, out_csv, steps_csv=None):
     return out
 
 
+def test_save_at_keeps_the_chosen_updates(tmp_path, trained_var,
+                                         monkeypatch):
+    """_log_run's --save-at: the port's run keeps the policy after the
+    chosen update counts only (label n - 1), with its progress rows."""
+    from var_tpu_torch.train.checkpoint import save_checkpoint
+
+    monkeypatch.setattr(GridDeviceSimEngine, "SAMPLES_PER_TASK", 2)
+    var_dir = str(tmp_path / "var")
+    save_checkpoint(var_dir, {"params": ai2thor_state_dict(trained_var[1])})
+    small = dict(RLRecurrentSize=32, RLRecurrentInputSize=16,
+                 RLEnvMaxSteps=4, ppoNumSteps=4)
+    out = tmp_path / "port"
+    _log_run("port", var_dir, out, 2, 3, 5, save_at=(1, 3), **small)
+    assert sorted(x for x in os.listdir(out) if x.isdigit()) == ["00000",
+                                                                 "00002"]
+    with open(out / "progress.csv") as f:
+        assert len(f.read().splitlines()) == 1 + 3
+
+
+def test_jax_policy_written_as_a_port_checkpoint(tmp_path):
+    """JAX's policy params written as the port's checkpoint directory, as
+    _log_run saves JAX's runs: the round trip back to JAX's leaves is
+    exact (asserted inside), the directory loads into the port's policy
+    with every tensor equal to the forward conversion, and the port's
+    config snapshot sits beside it for the evaluators."""
+    from var_tpu_torch.train.checkpoint import load_checkpoint
+
+    jcfg, tcfg = _configs(RLEnvSeed=5)
+    _, params, tpol = _policies(jcfg, tcfg, 8)
+    out = jax_policy_to_port(params, str(tmp_path / "port" / "00399"), tcfg)
+    got = load_checkpoint(out)["params"]
+    want = ai2thor_policy_state_dict(jax.tree_util.tree_map(np.asarray,
+                                                            params))
+    assert set(got) == set(want) == set(tpol.state_dict())
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+    tpol.load_state_dict(got)
+    assert os.path.exists(tmp_path / "port" / "config.json")
+
+
+# F1's long-horizon PPO discriminator: both packages' `jax|port` runs
+# from one VAR (the port's on the card through tools/e2e_run.py, JAX's
+# here with --save-at, its policies written as port checkpoints), every
+# saved policy scored by the port's device evaluator
+# (tools/success_curve.py, 1024 episodes), then joined here:
+#
+#     python tests/test_torch_grid_fullwidth.py ppo-table OUT.csv \
+#         --run jax:349:CURVE.csv:progress.csv ...
+#
+# The reading rule, fixed before the runs: the statistic is the success
+# at update 400, or, if every port run reads under 0.05 there, the mean
+# eprewmean over updates 300-399. "PPO parts" if both JAX runs lie above
+# every port run (1/45 under one distribution of ten), "cleared" if
+# neither JAX run lies above the port's highest, else "inconclusive".
+PPO_FLOOR = 0.05
+
+
+def f1_reading(port, jax_, port_reward, jax_reward):
+    """(statistic, verdict) of the reading rule above; `port` and `jax_`
+    are the runs' successes at the final update, `*_reward` their mean
+    eprewmean over the last 100 updates."""
+    if max(port) < PPO_FLOOR:
+        stat, port, jax_ = "mean eprewmean, updates 300-399", port_reward, \
+            jax_reward
+    else:
+        stat = "success at update 400"
+    if min(jax_) > max(port):
+        return stat, "PPO parts"
+    if max(jax_) <= max(port):
+        return stat, "cleared"
+    return stat, "inconclusive"
+
+
+def ppo_table(out_csv, runs):
+    """One row per (package, seed, scored update): success, ci95,
+    per-class success, and the mean eprewmean over the 100 updates up to
+    that update (progress.csv); prints the reading at the last update.
+    `runs` holds (package, seed, curve CSV, progress CSV)."""
+    import csv
+
+    rows = []
+    for package, seed, curve, progress in runs:
+        with open(progress) as f:
+            rewards = [float(r["eprewmean"]) for r in csv.DictReader(f)]
+        with open(curve) as f:
+            for r in csv.DictReader(f):
+                n = int(r["update"]) + 1  # the label is the update's index
+                classes = [k for k in r if k.startswith("class_")]
+                rows.append({
+                    "package": package, "seed": int(seed), "update": n,
+                    "success": float(r["success_rate"]),
+                    "ci95": float(r["ci95"]),
+                    **{k: float(r[k]) for k in classes},
+                    "mean_eprewmean_last100": float(np.mean(
+                        rewards[max(0, n - 100):n]))})
+    with open(out_csv, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+    last = max(r["update"] for r in rows)
+    final = [r for r in rows if r["update"] == last]
+    pick = {p: [r for r in final if r["package"] == p] for p in ("port",
+                                                                "jax")}
+    stat, verdict = f1_reading(
+        [r["success"] for r in pick["port"]],
+        [r["success"] for r in pick["jax"]],
+        [r["mean_eprewmean_last100"] for r in pick["port"]],
+        [r["mean_eprewmean_last100"] for r in pick["jax"]])
+    print(f"update {last}: {stat}; {verdict}")
+    return rows, stat, verdict
+
+
+@pytest.mark.parametrize("port,jax_,want", [
+    ([0.30, 0.20, 0.25], [0.31, 0.40], "PPO parts"),
+    ([0.30, 0.20, 0.25], [0.30, 0.10], "cleared"),
+    ([0.30, 0.20, 0.25], [0.31, 0.10], "inconclusive"),
+])
+def test_f1_reading_rule(port, jax_, want):
+    """The reading rule as fixed before the runs, and its fallback to the
+    rewards when every port run reads under PPO_FLOOR."""
+    assert f1_reading(port, jax_, [0] * 3, [0] * 2) == (
+        "success at update 400", want)
+    stat, verdict = f1_reading([0.01] * 3, [0.5, 0.5], [1.0, 2.0, 3.0],
+                               [2.5, 4.0])
+    assert (stat, verdict) == ("mean eprewmean, updates 300-399",
+                               "inconclusive")
+
+
 if __name__ == "__main__":
     import argparse
 
@@ -1170,7 +1342,8 @@ if __name__ == "__main__":
     draws = sub.add_parser("draws")
     draws.add_argument("out_dir")
     draws.add_argument("--var-key", type=int, default=977)
-    draws.add_argument("--policy-key", type=int, default=349)
+    draws.add_argument("--policy-key", type=int, nargs="+", default=[349],
+                       help="one policy draw per key")
     draws.add_argument("--ulp-seeds", type=int, nargs="*", default=(),
                        help="also write the VAR draw moved by one ulp per "
                        "weight under each seed's signs")
@@ -1184,6 +1357,13 @@ if __name__ == "__main__":
         log.add_argument("--policy-init", choices=["own", "jax"],
                          default="own",
                          help="the port only: start from JAX's policy draw")
+        log.add_argument("--save-at", type=int, nargs="*", default=(),
+                         help="save the policy after these update counts "
+                         "(JAX's also as a port checkpoint, OUT_DIR/port)")
+    table = sub.add_parser("ppo-table")
+    table.add_argument("out_csv")
+    table.add_argument("--run", nargs="+", required=True,
+                       help="PACKAGE:SEED:CURVE_CSV:PROGRESS_CSV")
     tv = sub.add_parser("train-var")
     tv.add_argument("what", choices=["collect", "jax", "port", "compare",
                                      "noise", "threads", "grads"])
@@ -1209,9 +1389,12 @@ if __name__ == "__main__":
                         how="ulp" if a.what == "noise" else "threads")
         else:
             train_var(a.what, os.path.abspath(a.work), a.epochs, a.var_key)
+    elif a.command == "ppo-table":
+        ppo_table(a.out_csv, [r.split(":") for r in a.run])
     elif a.command == "draws":
-        print(write_jax_draws(a.out_dir, a.var_key, a.policy_key,
-                              a.ulp_seeds))
+        for i, key in enumerate(a.policy_key):
+            print(write_jax_draws(a.out_dir, a.var_key, key,
+                                  a.ulp_seeds if i == 0 else ()))
     else:
         _log_run(a.command, a.var_checkpoint, a.out_dir, a.envs, a.updates,
-                 a.seed, a.policy_init)
+                 a.seed, a.policy_init, a.save_at)

@@ -23,6 +23,12 @@ Tolerances, each with its reason:
   so far + 5e-5 (Adam moves a weight by about lr whatever its gradient, so
   a near-zero gradient that rounds to the other sign differs by 2 lr a
   step), the median difference below 1e-6.
+
+The same 3 epochs at computeDtype='bfloat16' (the conv stacks and heads
+in bf16 on both sides, tests/test_torch_bf16.py) are held at that file's
+bounds in units of bf16's EPS = 2^-8: each step's loss within 2 EPS, the
+parameters within the same Adam bound with the median difference at most
+lr/10 a step. That case carries `slow`: it trains both packages again.
 """
 import os
 
@@ -40,7 +46,7 @@ from var_tpu_torch import config as tconfig
 from var_tpu_torch.convert import ai2thor_state_dict
 from var_tpu_torch.data import audio_store as tstore
 from var_tpu_torch.data import triplets as ttriplets
-from var_tpu_torch.models.encoders import VARPretextNet
+from var_tpu_torch.models.encoders import build_pretext_model
 from var_tpu_torch.train import pretext as tpretext
 
 CRNN_TOL = dict(rtol=1e-3, atol=2e-4)
@@ -72,11 +78,24 @@ def _np_tree(tree):
     return jax.tree_util.tree_map(lambda a: np.array(a), tree)
 
 
+EPS = 2.0 ** -8  # bf16's unit roundoff (tests/test_torch_bf16.py)
+
+
 @pytest.fixture(scope="module")
 def var_runs(tmp_path_factory):
     """One grid collection, then both trainers over VAR_EPOCHS epochs from
     JAX's initial weights. Returns what each recorded per epoch."""
-    work = tmp_path_factory.mktemp("grid_var")
+    return _var_runs(tmp_path_factory.mktemp("grid_var"))
+
+
+@pytest.fixture(scope="module")
+def var_runs_bf16(tmp_path_factory):
+    """var_runs at computeDtype='bfloat16' on both sides."""
+    return _var_runs(tmp_path_factory.mktemp("grid_var_bf16"),
+                     computeDtype="bfloat16")
+
+
+def _var_runs(work, **dtype):
     os.environ["VAR_TPU_SYNTH_CLIPS"] = "3"
     try:
         knobs = dict(
@@ -86,7 +105,7 @@ def var_runs(tmp_path_factory):
             pretextDataNumFiles=1, pretextNumEnvs=2, pretextEpoch=VAR_EPOCHS,
             pretextLRDecayEpoch=VAR_DECAY, pretextTrainBatchSize=VAR_BATCH,
             pretextModelSaveInterval=100, pretextModelFineTune=False,
-            pretextDataset="VARDataset")
+            pretextDataset="VARDataset", **dtype)
         jcfg, tcfg = _configs(**knobs)
         tcfg.override(audioBackend="pallas")
         jaudio, taudio = jstore.AudioStore(jcfg), tstore.AudioStore(tcfg)
@@ -123,7 +142,7 @@ def var_runs(tmp_path_factory):
 
     ttr = tpretext.PretextTrainer(tcfg, device="cpu", audio=taudio)
     ttr._ensure_audio()
-    ttr.model = VARPretextNet(3, "ai2thor")
+    ttr.model = build_pretext_model(tcfg)  # at the config's computeDtype
     ttr.model.load_state_dict(ai2thor_state_dict(init))
     tlog = []
     trun, topt = ttr._run_epoch_indexed, ttr._optimize
@@ -187,6 +206,40 @@ def test_var_parameters_match_jax_after_each_epoch(var_runs):
               f" median {med:.3e} bound {moved + 5e-5:.3e}")
         assert med < 1e-6, (ep, med)
 
+
+@pytest.mark.slow
+@pytest.mark.parametrize("what", ["losses", "parameters"])
+def test_var_at_bf16_matches_jax_every_epoch(var_runs_bf16, var_runs, what):
+    """A2's 3 epochs at computeDtype='bfloat16': every step's loss within 2
+    EPS of JAX's and the LR equal; the parameters after each epoch within
+    the Adam bound, the median at most lr/10 a step. Beside the port's
+    loss gaps it prints JAX's own bf16-against-float32 gaps."""
+    jlog, tlog = var_runs_bf16["jlog"], var_runs_bf16["tlog"]
+    assert len(jlog) == len(tlog) == VAR_EPOCHS
+    if what == "losses":
+        gaps = [np.abs(np.subtract(t["losses"], j["losses"])) / EPS
+                for j, t in zip(jlog, tlog)]
+        for ep, (g, j, t, f) in enumerate(zip(gaps, jlog, tlog,
+                                              var_runs["jlog"])):
+            own = np.abs(np.subtract(j["losses"], f["losses"])) / EPS
+            print(f"epoch {ep}: loss gaps in EPS {np.round(g, 3).tolist()}; "
+                  f"JAX bf16 against JAX float32 "
+                  f"{np.round(own, 3).tolist()}")
+            np.testing.assert_array_equal(t["lr"], j["lr"])
+        assert max(g.max() for g in gaps) <= 2
+        return
+    moved = median = 0.0
+    for ep, (j, t) in enumerate(zip(jlog, tlog)):
+        moved += 2 * float(np.sum(t["lr"]))
+        median += float(np.sum(t["lr"])) / 10
+        want = ai2thor_state_dict(j["params"])
+        diffs = torch.cat([(t["params"][k] - v).abs().ravel()
+                           for k, v in want.items()])
+        print(f"epoch {ep}: params max {diffs.max().item():.3e} (bound "
+              f"{moved + 5e-5:.3e}), median {diffs.median().item():.3e} "
+              f"(bound {median:.3e})")
+        assert diffs.max().item() <= moved + 5e-5, ep
+        assert diffs.median().item() <= median, ep
 
 
 def test_initial_draw_matches_jax_in_distribution():

@@ -91,6 +91,14 @@ def test_parallel_modules_are_covered():
             "var_tpu_torch/parallel/mesh.py"} <= scanned
 
 
+def test_mesh_cards_tool_is_covered():
+    """tools/mesh_cards.py, the across-cards run of meshShape, is among the
+    modules scanned and imported with jax and var_tpu blocked here."""
+    assert "var_tpu_torch.tools.mesh_cards" in set(_modules())
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert "var_tpu_torch/tools/mesh_cards.py" in scanned
+
+
 def test_last_modules_are_covered():
     """The plots and realTimeVec's frames, the TensorBoard writer, the
     key-value logger, the small utilities, the fused rollout engine with

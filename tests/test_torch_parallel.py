@@ -54,11 +54,10 @@ from var_tpu.train import pretext as jpretext
 from var_tpu_torch.convert import ai2thor_state_dict, arm_state_dict
 from var_tpu_torch.data import audio_store as tstore
 from var_tpu_torch.envs import arm_sim_device as tsim
-from var_tpu_torch.models.policy import build_policy
 from var_tpu_torch.parallel import mesh as tmesh
 from var_tpu_torch.rl.device_sim import CollectDraws
+from var_tpu_torch.tools import mesh_cards
 from var_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
-from var_tpu_torch.train.rl import device_sim_profile
 
 import torch_parallel_ranks as ranks
 
@@ -79,6 +78,16 @@ ENTRY_SETS = {
            "RLRecurrentInputSize=16", "RLModelSaveInterval=1",
            "RLLogInterval=1", "RLDeviceSimRollout=True",
            "vecEnvBackend='dummy'"]}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread per test worker, the module's fixtures included:
+    the tier-1 run puts several workers on one machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _np(x):
@@ -114,28 +123,14 @@ def _jax_collect_draws(key, k, n, t):
 
 def _write_pretext(work, profile, jcfg, audio):
     """JAX's initial VAR (converted) and the steps' index rows over a
-    random image set and the store's clip bank."""
+    random image set and the store's clip bank (mesh_cards' layout)."""
     model = build_pretext_model(jcfg)
     params = jax.jit(lambda key: init_pretext_params(model, jcfg, key))(
         jax.random.PRNGKey(0))["params"]
     params = jax.tree_util.tree_map(np.asarray, params)
     convert = arm_state_dict if profile == "arms" else ai2thor_state_dict
-    torch.save(convert(params), os.path.join(work, f"{profile}_var.pt"))
-    bank, lengths, ranges = audio.build_clip_bank()
-    rng = np.random.RandomState(1)
-    steps, b = PRETEXT_STEPS[profile], jcfg.pretextTrainBatchSize
-    images = rng.randint(0, 256, (12, 3, 96, 96)).astype(np.uint8)
-    pos_ids, pos_zero = audio.sample_clip_ids(
-        rng.randint(0, 5, steps * b), ranges, rng)
-    neg_ids, neg_zero = audio.sample_clip_ids(
-        rng.randint(0, 5, steps * b), ranges, rng)
-    np.savez(os.path.join(work, f"{profile}_pretext.npz"), images=images,
-             wav=bank, len=lengths,
-             img=rng.randint(0, 12, (steps, b)).astype(np.int64),
-             pos=pos_ids.reshape(steps, b).astype(np.int64),
-             pos_zero=pos_zero.reshape(steps, b),
-             neg=neg_ids.reshape(steps, b).astype(np.int64),
-             neg_zero=neg_zero.reshape(steps, b))
+    mesh_cards.write_pretext_inputs(work, profile, jcfg, audio,
+                                    convert(params))
     return params
 
 
@@ -163,11 +158,7 @@ def _jax_pretext(work, profile, jcfg, audio, params):
 def _policy_input(work, profile, seed):
     """The profile's policy, the port's draw from `seed` (the sim checks
     hold dp=n to dp=1, whose engines other files hold to JAX's)."""
-    tcfg = ranks.knobs(profile)
-    space, _ = device_sim_profile(tcfg)
-    pol = build_policy(tcfg, space)
-    pol.reset_parameters(torch.Generator().manual_seed(seed))
-    torch.save(pol.state_dict(), os.path.join(work, f"{profile}_policy.pt"))
+    mesh_cards.write_policy(work, profile, "small", seed)
 
 
 def _jax_runs(work, params):
@@ -215,10 +206,8 @@ def runs(tmp_path_factory):
     """The 4-rank spawn, started first (its ranks wait for the inputs);
     the inputs written; JAX and dp=1 in this process meanwhile."""
     work = str(tmp_path_factory.mktemp("parallel"))
-    threads = torch.get_num_threads()
     os.environ["VAR_TPU_SYNTH_CLIPS"] = str(CLIPS)
     try:
-        torch.set_num_threads(1)
         with ThreadPoolExecutor(max_workers=2) as ex:
             spawned = ex.submit(
                 tmesh.launch, ranks.rank_main, (work,), 4, device="cpu",
@@ -234,6 +223,7 @@ def runs(tmp_path_factory):
                         work, profile, _jconfig(profile), audio)
                 _arm_sim_inputs(work, _jconfig("arms"))
                 _grid_inputs(work)
+                mesh_cards.write_width(work, "small")
                 save_checkpoint(os.path.join(work, "rl_var"), {
                     "params": torch.load(os.path.join(work, "arms_var.pt"))})
                 with open(os.path.join(work, "entry.json"), "w") as f:
@@ -256,10 +246,9 @@ def runs(tmp_path_factory):
             spawned.result()
     finally:
         del os.environ["VAR_TPU_SYNTH_CLIPS"]
-        torch.set_num_threads(threads)
-    sharded = {(dp, r): torch.load(os.path.join(work, f"rank{r}_dp{dp}.pt"),
-                                   weights_only=False)
-               for dp in (4, 2) for r in range(4)}
+    sharded = {(shape["dp"], r): torch.load(
+        mesh_cards.check_file(work, "spawn", shape, r), weights_only=False)
+        for shape in ranks.MESHES for r in range(4)}
     return dict(work=work, dp1=dp1, jax=jax_out, sharded=sharded)
 
 
@@ -405,6 +394,17 @@ def test_fused_host_cycle_matches_dp1(runs, dp):
 
 
 @pytest.mark.parametrize("dp", [4, 2])
+def test_fused_host_cycle_on_each_ranks_shmem_workers_matches_dp1(runs, dp):
+    """The fused host path with each rank's envs in shared-memory workers
+    from the rank's own forkserver (envs/vec/factory.py's 'shmem'): dp=n
+    against dp=1's shmem run and its in-process run."""
+    got = {"fused_shmem": runs["sharded"][(dp, 0)]["fused_shmem"]}
+    rows = mesh_cards.compare_to_dp1(got, runs["dp1"], "small")
+    assert any("in-process" in r["what"] for r in rows)
+    assert all(r["ok"] for r in rows), [r for r in rows if not r["ok"]]
+
+
+@pytest.mark.parametrize("dp", [4, 2])
 def test_every_rank_holds_rank_0s_parameters_bit_for_bit(runs, dp):
     lead = runs["sharded"][(dp, 0)]
     for r in range(1, 4):
@@ -501,3 +501,115 @@ def test_entry_points_start_n_ranks(entry, monkeypatch, tmp_path):
     (got, n, kw), = calls
     assert got is fn and n == 2 and kw["device"] == "cpu"
     assert kw["threads"] == max(1, (os.cpu_count() or 1) // 2)
+
+
+def _rank_notes(runs):
+    return [json.load(open(os.path.join(runs["work"],
+                                        f"rank{r}_threads.json")))
+            for r in range(4)]
+
+
+def test_a_rank_waits_for_rank_0s_collection_past_the_collective_timeout(
+        runs):
+    """Rank 0's pretext collection (through PretextTrainer.run) took
+    longer than a gloo group's collective timeout: every other rank waited
+    for it (parallel/mesh.py::run_on_lead, no collective) and then met the
+    others in a collective on that group; the barrier that waited before
+    raises on the ranks that wait."""
+    assert ranks.LEAD_S > 2 * ranks.SHORT_TIMEOUT_S
+    for r, note in enumerate(_rank_notes(runs)):
+        assert note["waited_s"] >= ranks.LEAD_S - 0.1, (r, note)
+        assert note["after_wait_sum"] == 4.0, (r, note)
+        if r:
+            assert note["barrier"].startswith("raised"), (r, note)
+
+
+def test_replicas_hold_one_sum_bit_for_bit(runs):
+    """On {'dp': 2, 'rep': 2}, blocks whose two replicas differ by an ulp
+    (two cards' kernels that do not repeat bit for bit) reduce to the same
+    bits on every rank: the replicas cannot drift apart."""
+    sums = [note["replica_sum"] for note in _rank_notes(runs)]
+    assert all(s == sums[0] for s in sums), sums
+
+
+def test_ranks_take_their_share_of_the_host_threads(runs):
+    """launch's spawned ranks start with the OpenMP and BLAS variables at
+    their thread count (1 here); a torchrun launch's ranks take
+    cli.py::sharded_main's cpu_count // n torch threads."""
+    share = max(1, (os.cpu_count() or 1) // 4)
+    for note in _rank_notes(runs):
+        assert note["spawned_env"] == {"OMP_NUM_THREADS": "1",
+                                       "MKL_NUM_THREADS": "1"}
+        assert note["launched_threads"] == share
+
+
+@pytest.mark.parametrize("entry", ["pretext", "rl"])
+def test_cuda_ranks_take_their_share_of_the_host_threads(entry, monkeypatch):
+    """CUDA ranks get cpu_count // n threads, as CPU ranks do (each runs
+    its host sims and numpy on the host's cores)."""
+    import var_tpu_torch.parallel.mesh as pmesh
+    from var_tpu_torch import pretext as tpre
+    from var_tpu_torch import rl as trl_entry
+
+    calls = []
+    monkeypatch.setattr(pmesh, "launch",
+                        lambda fn, args, n, **kw: calls.append((n, kw)))
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    args = ["--env", "arms", "--device", "cuda", "--set",
+            "meshShape={'dp': 4}"]
+    if entry == "pretext":
+        tpre.main(args + ["pretextCollection=False"])
+    else:
+        trl_entry.main(args + ["RLTrain=True"])
+    (n, kw), = calls
+    assert n == 4 and kw["device"] == "cuda"
+    assert kw["threads"] == max(1, (os.cpu_count() or 1) // 4)
+
+
+def test_mesh_cards_compares_and_reports_the_spawn(runs):
+    """tools/mesh_cards.py's comparison and report on the spawn's ranks at
+    the file's small widths: every row holds (each check against dp=1,
+    every rank bit-equal to rank 0 after every step, each rank's first
+    kernel input at its block's shape), and a broken rank fails its rows."""
+    by_mesh = {mesh_cards.mesh_name(shape): [runs["sharded"][(shape["dp"], r)]
+                                             for r in range(4)]
+               for shape in ranks.MESHES}
+    rows = mesh_cards.compare_checks(runs["dp1"], by_mesh, "spawn", "small")
+    assert rows and all(r["ok"] for r in rows), [r for r in rows
+                                                 if not r["ok"]]
+    kinds = {r["what"].split(" ")[0] for r in rows}
+    assert {"losses", "parameters", "rank", "image"} <= kinds
+    lines = mesh_cards.report_lines(rows, [], {}, "cpu")
+    assert lines[-1] == (f"checks: {len(rows)} of {len(rows)} rows ok over "
+                         f"{len({(r['route'], r['check']) for r in rows})} "
+                         "(route, check) pairs")
+    broken = dict(runs["sharded"][(4, 1)])
+    out = broken["arms_sim"] = dict(broken["arms_sim"])
+    out["params"] = dict(out["params"])
+    first = next(iter(out["params"]))
+    out["params"][first] = out["params"][first] + 1
+    bad = mesh_cards.compare_ranks([runs["sharded"][(4, 0)], broken])
+    assert [r["check"] for r in bad if not r["ok"]] == ["arms_sim"]
+    assert any(line.startswith("FAIL") for line in
+               mesh_cards.report_lines(bad, [], {}, "cpu"))
+
+
+def test_mesh_cards_summarizes_rates():
+    """The rates' summary: the median of the blocks with its spread, the
+    collectives' ms a step (a pretext block is 10 steps) and the
+    all-reduce sizes with their counts."""
+    results = {"dp": 2, "threads": 4,
+               "arms_pretext": [[1.0, 1280, 20.0, 30, [8, 8, 4]],
+                                [2.0, 1280, 10.0, 30, [8, 8, 4]],
+                                [4.0, 1280, 40.0, 30, [8, 8, 4]]],
+               "arms_sim": [[2.0, 6400, 5.0, 9, [16]]] * 3}
+    rows = {r["path"]: r for r in mesh_cards.summarize_rates(results)}
+    pre = rows["arms_pretext"]
+    assert (pre["median"], pre["min"], pre["max"]) == (640.0, 320.0, 1280.0)
+    assert pre["collective_ms_per_step"] == 2.0
+    assert pre["allreduce_bytes"] == {"4": 1, "8": 2}
+    assert rows["arms_sim"]["median"] == 3200.0
+    assert rows["arms_sim"]["unit"] == "env-steps/s"
+    line = mesh_cards.report_lines([], [pre], {}, "card")[-1]
+    assert line.startswith("rate arms_pretext dp=2 threads=4: 640.0 "
+                           "triplets/s (min 320.0, max 1280.0, 3 runs)")

@@ -79,13 +79,12 @@ def build_config(args, role: str):
 def sharded_main(config, device, rank_fn: Callable, args: tuple = ()):
     """Run rank_fn(config, *args, device=...) on every rank of
     config.meshShape (parallel/mesh.py::launch): spawned here, or this
-    process as one rank of a torchrun launch. CPU ranks share the host's
-    cores."""
+    process as one rank of a torchrun launch. The ranks share the host's
+    cores, each taking cpu_count // n threads, CPU and CUDA ranks alike
+    (a CUDA rank's host sims, env workers and numpy run there)."""
     from var_tpu_torch.parallel.mesh import launch, mesh_size
 
     n = mesh_size(config.meshShape)
-    threads = None
-    if device is not None and str(device).startswith("cpu"):
-        threads = max(1, (os.cpu_count() or 1) // n)
+    threads = max(1, (os.cpu_count() or 1) // n)
     return launch(rank_fn, (config,) + tuple(args), n, device=device,
                   threads=threads)

@@ -17,15 +17,20 @@ Start ranks with `launch` (torch.multiprocessing under spawn, since CUDA
 forbids fork after init; or the group of a `torchrun` launcher when
 WORLD_SIZE is set). A failed init or collective raises; a rank that dies
 makes the others raise at the group's timeout, and `launch` joins every
-rank it started.
+rank it started. Work that rank 0 does alone while the others wait for it
+(pretext collection) goes through `run_on_lead`, whose wait is no
+collective: a collective that waits longer than TIMEOUT_S raises (NCCL's
+watchdog ends the rank), a collection may take longer.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import math
 import os
 import shutil
 import tempfile
+import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Sequence
 
@@ -194,13 +199,30 @@ def _active(mesh: Optional[Mesh]) -> bool:
 
 
 def all_reduce_sum_(tensors: Sequence[torch.Tensor], mesh: Optional[Mesh]):
-    """Sum each tensor over the ranks, in place, in one collective (the
-    tensors are flattened into one buffer of their common dtype)."""
+    """Sum each tensor over the mesh's 'dp' line, in place, in one
+    collective (the tensors are flattened into one buffer of their common
+    dtype).
+
+    Where other axes replicate (world > dp), the sum runs over every rank
+    and is divided by the number of 'dp' lines. Each line computes the
+    same sum up to the last bits, but a card's kernels do not all repeat
+    bit for bit (on four H100s the two lines of {'dp': 2, 'rep': 2} held
+    different parameters after one step when each reduced its own line),
+    so the replicas would drift apart; the mean of the lines' sums is the
+    same bits on every rank."""
     tensors = list(tensors)
     if not _active(mesh) or not tensors:
         return tensors
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
+    lines = mesh.world // mesh.dp
+    if lines > 1:
+        if not flat.is_floating_point():
+            raise TypeError("a replicated mesh averages its lines' sums: "
+                            f"floating-point tensors only, got {flat.dtype}")
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        flat.div_(lines)
+    else:
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
     offset = 0
     with torch.no_grad():
         for t in tensors:
@@ -248,15 +270,37 @@ def broadcast_(tensors: Sequence[torch.Tensor], mesh: Optional[Mesh],
     return tensors
 
 
-def barrier():
-    """Every rank of the initialised group (if any) waits for the others."""
-    if dist.is_initialized():
-        dist.barrier()
+def run_on_lead(fn: Callable, poll_s: float = 0.2):
+    """fn() on rank 0 while every other rank waits for it; returns fn's
+    result on rank 0 and None elsewhere (without a group: fn() here).
 
-
-def group_rank() -> int:
-    """This process's rank in the initialised group (0 without one)."""
-    return dist.get_rank() if dist.is_initialized() else 0
+    The others wait on a key in the group's store, which rank 0 sets when
+    fn returns or raises, and no collective: a collective that waits past
+    TIMEOUT_S raises, and NCCL's watchdog ends the rank, while rank 0's
+    work (pretext collection at the recipes' sizes) may take longer. A
+    rank 0 that raises makes every waiting rank raise."""
+    if not dist.is_initialized():
+        return fn()
+    store = dist.distributed_c10d._get_default_store()
+    # every rank counts its own calls in the store, so the n-th call of
+    # each rank meets at one key
+    calls = store.add(f"var_tpu_torch/run_on_lead/calls/{dist.get_rank()}",
+                      1)
+    key = f"var_tpu_torch/run_on_lead/{calls}"
+    if dist.get_rank() == 0:
+        try:
+            out = fn()
+        except BaseException as e:
+            store.set(key, f"failed: {type(e).__name__}: {e}")
+            raise
+        store.set(key, "ok")
+        return out
+    while not store.check([key]):
+        time.sleep(poll_s)
+    said = store.get(key).decode()
+    if said != "ok":
+        raise RuntimeError(f"rank 0 {said}")
+    return None
 
 
 # -- starting ranks ------------------------------------------------------------
@@ -312,9 +356,10 @@ def launch(fn: Callable, args: tuple, n: int, device=None,
     so its collectives run on the backend all the same), else n processes
     under spawn, joined before this returns; a rank that raises makes the
     call raise. The group meets at `init_method` (default: a file in a
-    fresh temporary directory). `threads` sets each spawned rank's torch
-    threads. Returns fn's result in this process (None when ranks were
-    spawned)."""
+    fresh temporary directory). `threads` sets each rank's torch threads
+    (spawned or under the launcher), and the OpenMP and BLAS threads of
+    the ranks it spawns. Returns fn's result in this process (None when
+    ranks were spawned)."""
     if "WORLD_SIZE" in os.environ:
         world = int(os.environ["WORLD_SIZE"])
         if world != n:
@@ -322,6 +367,8 @@ def launch(fn: Callable, args: tuple, n: int, device=None,
         local = int(os.environ.get("LOCAL_RANK", 0))
         dev = rank_device(device, local, min(world, int(os.environ.get(
             "LOCAL_WORLD_SIZE", world))))
+        if threads:
+            torch.set_num_threads(threads)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         # a group this process already holds stays its holder's to end
@@ -346,10 +393,32 @@ def launch(fn: Callable, args: tuple, n: int, device=None,
                 _leave()
         import torch.multiprocessing as mp
 
-        mp.start_processes(
-            _rank_main, args=(fn, args, n, device, backend, address,
-                              threads),
-            nprocs=n, join=True, start_method="spawn")
+        with _thread_env(threads):
+            mp.start_processes(
+                _rank_main, args=(fn, args, n, device, backend, address,
+                                  threads),
+                nprocs=n, join=True, start_method="spawn")
         return None
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+THREAD_VARS = ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS")
+
+
+@contextlib.contextmanager
+def _thread_env(threads: Optional[int]):
+    """The OpenMP and BLAS thread variables set to `threads` while ranks
+    are spawned (a spawned rank reads them as it starts, before numpy
+    loads), restored after; nothing when `threads` is None."""
+    saved = {k: os.environ.get(k) for k in THREAD_VARS}
+    if threads:
+        os.environ.update({k: str(threads) for k in THREAD_VARS})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v

@@ -56,10 +56,9 @@ from var_tpu_torch.ops.audio import sound_features
 from var_tpu_torch.ops.losses import triplet_margin_loss
 from var_tpu_torch.parallel.mesh import (
     all_reduce_sum_,
-    barrier,
     broadcast_,
     build_mesh,
-    group_rank,
+    run_on_lead,
 )
 from var_tpu_torch.train.checkpoint import (
     is_checkpoint,
@@ -839,10 +838,9 @@ class PretextTrainer:
             self.manuallyCollectPretextData()
             return
         if cfg.pretextCollection:
-            # under meshShape rank 0 collects and the others wait for it
-            if group_rank() == 0:
-                self.collectPretextData()
-            barrier()
+            # under meshShape rank 0 collects and the others wait for it,
+            # however long it takes (no collective times the wait)
+            run_on_lead(self.collectPretextData)
         if cfg.pretextTrain:
             self.trainRepresentation(epoch=cfg.pretextEpoch, lr=cfg.pretextLR)
         elif not cfg.pretextCollection:
