@@ -228,6 +228,21 @@ Phase 37 runs meshShape across cards (var_tpu_torch/tools/mesh_cards.py):
    version, the entry points as a user starts them, and the rates at dp =
    1, 2, ..., N; with one card it prints that it needs two or more.
 
+Phase 38 runs the simulator adapters (var_tpu_torch/envs/adapters/) on
+recording stand-ins of PyBullet and AI2-THOR that label
+(tests/torch_adapter_standins.py), since no machine here has either:
+38. for simBackend='pybullet' (the arm) and 'ithor' (the grid), through
+   the entry points at full width with vecEnvBackend='dummy': pretext
+   collection through the adapter (quotas [32, 32, 32, 32, 64]), 3 VAR
+   epochs at batch 128 through the kernel (2 launches a step), 2 fused PPO
+   updates (8 envs x 100 steps at GRU 512; 8 x 50 at GRU 1024), testRL's
+   host evaluation over 8 episodes to its CSV; the launches of that path
+   under launches_by_path["adapters_arms"] and ["adapters_ai2thor"];
+   then RLDeviceSimEval=True must raise ValueError, the kernel on the
+   path's first input against its plain version, and the fused step and
+   update card against CPU (tools/rl_check.py). Prints the adapter's
+   frames/s, the collection's triplets/s and the env-steps/s.
+
 It then stops the processes it started (the forkserver and the resource
 tracker are stopped and waited for; a worker left running fails the run;
 this runs on failure too), prints the card's name and power limit as
@@ -2796,6 +2811,202 @@ def mesh_cards_phase(torch):
         fail("phase 37: a mesh_cards check failed")
 
 
+# -- phase 38: the simulator adapters under stand-ins -------------------------
+
+# each adapter's simBackend, its labelling stand-in's installer
+# (tests/torch_adapter_standins.py) and its collection quotas: 192 triplets,
+# so that a batch of 128 fills
+ADAPTERS = {
+    "arms": dict(backend="pybullet", install="install_labelling_pybullet"),
+    "ai2thor": dict(backend="ithor", install="install_labelling_ai2thor"),
+}
+ADAPTER_QUOTA = [32, 32, 32, 32, 64]
+
+
+def _adapter_frames(np, env, backend, n=200):
+    """The adapter's get_image (the stand-in's frame, the crop and
+    resize_linear_u8) per second, over n calls after a reset."""
+    from var_tpu_torch.config import gym_register, main_config
+    from var_tpu_torch.envs import make_entry_points
+
+    cfg = main_config(env=env)
+    cfg.override(simBackend=backend, RLTrain=True)
+    gym_register(cfg, env=env)
+    sim = make_entry_points(cfg, env)[1](cfg)
+    sim.seed(0)
+    sim.reset()
+    t0 = time.perf_counter()
+    frames = [sim.get_image() for _ in range(n)]
+    rate = n / (time.perf_counter() - t0)
+    sim.close()
+    if frames[-1].shape != (96, 96, 3) or frames[-1].dtype != np.uint8:
+        fail(f"the {env} adapter's frame is {frames[-1].shape}")
+    return rate
+
+
+def adapter_path(torch, np, mld, kernel, env):
+    """Phase 38 for one adapter, its stand-in installed: collection through
+    the adapter, 3 VAR epochs at batch 128 through the kernel, 2 fused PPO
+    updates, testRL over 8 episodes (the main path, its launches counted
+    from 0), then the refusal of RLDeviceSimEval, the kernel on the path's
+    first input against its plain version and the fused step and update,
+    card against CPU."""
+    from var_tpu_torch.ops import audio
+    from var_tpu_torch.pretext import main as pretext_main
+    from var_tpu_torch.rl import main as rl_main
+    from var_tpu_torch.train import pretext as tpretext
+    from var_tpu_torch.train.rl import RLTrainer
+
+    prof, run = PROFILES[env], RUN_DIR / "adapters" / env
+    backend, steps = ADAPTERS[env]["backend"], prof["steps"]
+    frames = _adapter_frames(np, env, backend)
+
+    collect = tpretext.PretextTrainer.collectPretextData
+    seconds = []
+
+    def timed_collect(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = collect(self, *args, **kwargs)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    seen = {}
+    undo = _capture_stft(audio, seen)
+    tpretext.PretextTrainer.collectPretextData = timed_collect
+    mld.mel_log_dct.launches = 0
+    try:
+        trainer = pretext_main([
+            "--env", env, "--set", f'simBackend="{backend}"',
+            f'pretextDataDir=["{run / "data"}"]',
+            f'pretextModelSaveDir="{run / "model"}"',
+            'audioBackend="pallas"', "pretextModelFineTune=False",
+            'pretextDataset="VARDataset"', 'vecEnvBackend="dummy"',
+            f"pretextCollectNum={ADAPTER_QUOTA}", "pretextEpoch=3",
+            "pretextModelSaveInterval=3"])
+        rl_dir = run / "rl_model"
+        rl_trainer = rl_main([
+            "--env", env, "--set", f'simBackend="{backend}"',
+            f'pretextModelLoadDir="{run / "model" / "2"}"',
+            f'RLModelSaveDir="{rl_dir}"', "RLTrain=True",
+            "RLModelFineTune=False", 'vecEnvBackend="dummy"',
+            f"RLTotalSteps={2 * 8 * steps}", "RLModelSaveInterval=1",
+            "RLLogInterval=1"])
+        cfg = copy.deepcopy(rl_trainer.config)
+        cfg.override(RLTrain=False)
+        if prof["eval_per_class"]:
+            cfg.override(testEpisodesPerClass=2)
+        evaluator = RLTrainer(cfg, device="cuda")
+        evaluator.load_pretext()
+        path = rl_dir / "00001"
+        t0 = time.perf_counter()
+        rate = evaluator.testRL(num_episodes=8, policy_path=str(path),
+                                num_envs=4)
+        eval_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    finally:
+        tpretext.PretextTrainer.collectPretextData = collect
+        undo()
+    launches = LAUNCHES[f"adapters_{env}"] = mld.mel_log_dct.launches
+
+    tcfg, rcfg = trainer.config, rl_trainer.config
+    shapes = sorted(set(seen["shapes"]))
+    want_shape = (128, prof["sound"][1] + 1, 257)
+    triplets = sum(ADAPTER_QUOTA)
+    print(f"adapters [{env}]: simBackend {tcfg.simBackend!r} on the "
+          f"recording stand-in; frames/s {frames:.1f}; collection "
+          f"{triplets} triplets in {seconds[0]:.3f} s = "
+          f"{triplets / seconds[0]:.1f} triplets/s; {trainer.step} VAR "
+          f"steps at batch {tcfg.pretextTrainBatchSize}, mel_log_dct "
+          f"launches {launches} at {shapes}", flush=True)
+    if tcfg.simBackend != backend or rcfg.simBackend != backend \
+            or tcfg.pretextTrainBatchSize != 128 or trainer.step != 6 \
+            or shapes != [want_shape] \
+            or launches != 2 * trainer.step:
+        fail(f"the {env} adapter's pretext did not run through the adapter "
+             f"and the kernel at full width")
+    updates = rl_trainer.update_stats
+    env_rate = updates[1][0] / updates[1][1]
+    print(f"adapters [{env}]: {len(updates)} fused PPO updates at "
+          f"{_width(rcfg)}; env-steps/s at update 1 {env_rate:.1f}; "
+          f"update seconds {[round(t, 5) for _, t in updates]}", flush=True)
+    if len(updates) != 2 or _width(rcfg)[:3] != (8, steps, prof["gru"]):
+        fail(f"the {env} adapter's PPO did not run at full width")
+    with open(rl_dir / "progress.csv") as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r[k]) for r in rows for k in (
+        "loss/value_loss", "loss/policy_loss", "loss/policy_entropy")]
+    if len(rows) != 2 or not all(math.isfinite(v) for v in losses):
+        fail(f"bad {env} adapter PPO losses {losses}")
+    with open(rl_dir / f"test_{path.name}.csv") as f:
+        episodes = list(csv.DictReader(f))
+    print(f"adapters [{env}]: testRL {len(episodes)} episodes on 4 envs, "
+          f"success rate {rate}, {eval_s:.3f} s (set-up included)",
+          flush=True)
+    if len(episodes) != 8 or not 0.0 <= rate <= 1.0:
+        fail(f"bad {env} adapter eval output")
+
+    cfg.override(RLDeviceSimEval=True)
+    try:
+        evaluator.testRL(num_episodes=8, policy_path=str(path))
+        fail(f"RLDeviceSimEval ran on the {env} adapter's config")
+    except ValueError as e:
+        print(f"adapters [{env}]: RLDeviceSimEval refused: {e}", flush=True)
+
+    power, params = seen[257]
+    with torch.no_grad():
+        got = mld.mel_log_dct(power, params)
+        want = mld.mel_log_dct_reference(power, params)
+    err = (got - want).abs().max().item()
+    print(f"adapters [{env}]: the kernel on the path's first input "
+          f"{tuple(power.shape)}: max abs err {err:.3e}", flush=True)
+    if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+        fail(f"the kernel disagrees with its plain version on the {env} "
+             f"adapter's path")
+    kernel["max_abs_err"] = max(kernel["max_abs_err"], err)
+
+    from var_tpu_torch.config import main_config
+    from var_tpu_torch.tools.rl_check import card_against_cpu
+
+    check = main_config(env=env)
+    check.override(simBackend=backend, RLTrain=True, ppoNumSteps=10,
+                   RLEnvMaxSteps=5, vecEnvBackend="dummy")
+    report = card_against_cpu(check)
+    print(f"adapters [{env}]: card vs cpu (8 envs x 10 steps, full "
+          f"width): {report}", flush=True)
+    if not report["ok"]:
+        fail(f"the {env} adapter's fused step or update differs between "
+             f"the card and the CPU")
+    return dict(frames=frames, triplets=triplets / seconds[0],
+                env_steps=env_rate)
+
+
+def adapters_phase(torch, np, mld, kernel):
+    """Phase 38: both adapters, each under its labelling stand-in, which
+    is taken out of sys.modules again after its path."""
+    import types
+
+    # tests/ of this checkout as the package `tests`, whatever else of that
+    # name the machine has installed
+    tests = types.ModuleType("tests")
+    tests.__path__ = [str(ROOT / "tests")]
+    sys.modules["tests"] = tests
+    from tests import torch_adapter_standins as standins
+
+    print("phase 38: the simulator adapters run on recording stand-ins "
+          "(tests/torch_adapter_standins.py), not on PyBullet or AI2-THOR",
+          flush=True)
+    shutil.rmtree(RUN_DIR / "adapters", ignore_errors=True)
+    for env, spec in ADAPTERS.items():
+        patch = standins.SysModules()
+        getattr(standins, spec["install"])(patch)
+        try:
+            adapter_path(torch, np, mld, kernel, env)
+        finally:
+            patch.undo()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -2869,6 +3080,9 @@ def main():
     t0 = time.perf_counter()
     mesh_cards_phase(torch)
     print(f"phase 37 in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    adapters_phase(torch, np, mld, kernel)
+    print(f"phase 38 in {time.perf_counter() - t0:.1f} s", flush=True)
 
     stop_children()  # before the result: nothing outlives the script
     kernel["launches_by_path"] = dict(LAUNCHES)

@@ -522,8 +522,8 @@ def test_device_eval_refuses_adapter_backend():
     """test_device_eval.py:308 twin."""
     _, tcfg = _configs(RLTrain=False, RLDeviceSimEval=True)
     trainer = trl.RLTrainer(tcfg, device="cpu")
-    # set after the trainer registers the envs: the port's env factory
-    # refuses the pybullet adapter itself
+    # set after the trainer registers the envs, so that the refusal
+    # comes from testRL and not from an adapter asking for pybullet
     tcfg.override(simBackend="pybullet")
     with pytest.raises(ValueError, match="simBackend"):
         trainer.testRL(policy_path="/nonexistent")

@@ -28,7 +28,9 @@ The same 3 epochs at computeDtype='bfloat16' (the conv stacks and heads
 in bf16 on both sides, tests/test_torch_bf16.py) are held at that file's
 bounds in units of bf16's EPS = 2^-8: each step's loss within 2 EPS, the
 parameters within the same Adam bound with the median difference at most
-lr/10 a step. That case carries `slow`: it trains both packages again.
+lr/10 a step; and each step taken by the port from JAX's state before it
+(teacher-forced) at the same bounds. These cases carry `slow`: they train
+both packages again.
 """
 import os
 
@@ -47,6 +49,7 @@ from var_tpu_torch.convert import ai2thor_state_dict
 from var_tpu_torch.data import audio_store as tstore
 from var_tpu_torch.data import triplets as ttriplets
 from var_tpu_torch.models.encoders import build_pretext_model
+from var_tpu_torch.tools.rl_check import bf16_partial_sums
 from var_tpu_torch.train import pretext as tpretext
 
 CRNN_TOL = dict(rtol=1e-3, atol=2e-4)
@@ -90,12 +93,13 @@ def var_runs(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def var_runs_bf16(tmp_path_factory):
-    """var_runs at computeDtype='bfloat16' on both sides."""
+    """var_runs at computeDtype='bfloat16' on both sides, with JAX's state
+    and each package's batch recorded before every step."""
     return _var_runs(tmp_path_factory.mktemp("grid_var_bf16"),
-                     computeDtype="bfloat16")
+                     teacher=True, computeDtype="bfloat16")
 
 
-def _var_runs(work, **dtype):
+def _var_runs(work, teacher=False, **dtype):
     os.environ["VAR_TPU_SYNTH_CLIPS"] = "3"
     try:
         knobs = dict(
@@ -138,6 +142,18 @@ def _var_runs(work, **dtype):
         return losses, n
 
     jtr._run_epoch_indexed = jrecord
+    jsteps = []
+    if teacher:
+        jstep = jtr._train_step_indexed
+
+        def jteacher(state, *args):
+            # copies: the jitted step donates its state
+            jsteps.append(dict(params=_np_tree(state.params),
+                               adam=_np_tree(state.opt_state[1]),
+                               batch=[np.array(a) for a in args[3:]]))
+            return jstep(state, *args)
+
+        jtr._train_step_indexed = jteacher
     jtr.trainRepresentation(log_csv=False)
 
     ttr = tpretext.PretextTrainer(tcfg, device="cpu", audio=taudio)
@@ -163,9 +179,27 @@ def _var_runs(work, **dtype):
 
     ttr._optimize = toptimize
     ttr._run_epoch_indexed = trecord
+    tsteps = []
+    if teacher:
+        tstep = ttr._train_step_indexed
+
+        def tteacher(bank, *args):
+            named = dict(ttr.model.named_parameters())
+            tsteps.append(dict(
+                bank=bank, batch=args,
+                params={k: v.detach().clone() for k, v in named.items()},
+                adam={k: {n: t.clone() for n, t in
+                          ttr.optimizer.state[p].items()}
+                      for k, p in named.items() if p in ttr.optimizer.state}))
+            return tstep(bank, *args)
+
+        ttr._train_step_indexed = tteacher
     ttr.trainRepresentation(log_csv=False)
+    if teacher:
+        del ttr._train_step_indexed
     return dict(jds=jds, tds=tds, jlog=jlog, tlog=tlog, init=init,
-                jcfg=jcfg, tcfg=tcfg, jtr=jtr, ttr=ttr)
+                jcfg=jcfg, tcfg=tcfg, jtr=jtr, ttr=ttr, jsteps=jsteps,
+                tsteps=tsteps)
 
 
 def test_var_datasets_and_epoch_draws_are_equal(var_runs):
@@ -240,6 +274,98 @@ def test_var_at_bf16_matches_jax_every_epoch(var_runs_bf16, var_runs, what):
               f"(bound {median:.3e})")
         assert diffs.max().item() <= moved + 5e-5, ep
         assert diffs.median().item() <= median, ep
+
+
+def _port_step(run, step, params, adam):
+    """The port's bf16 step `step` on its own batch of that step (whose
+    indices equal JAX's), from the given parameters and Adam state (both
+    keyed by the port's parameter names). Returns (loss, state_dict
+    after the step)."""
+    ttr = run["ttr"]
+    ttr.model.load_state_dict(params)
+    ttr.optimizer.state.clear()
+    for name, p in ttr.model.named_parameters():
+        if name in adam:
+            ttr.optimizer.state[p] = {k: v.clone()
+                                      for k, v in adam[name].items()}
+    ttr.step = step
+    t = run["tsteps"][step]
+    loss = ttr._train_step_indexed(t["bank"], *t["batch"])
+    return float(loss), {k: v.clone() for k, v in
+                         ttr.model.state_dict().items()}
+
+
+def _jax_state(run, source):
+    """JAX's parameters and optax Adam state before step `source`, in the
+    port's names and layouts."""
+    rec = run["jsteps"][source]
+    adam = rec["adam"]
+    mu, nu = ai2thor_state_dict(adam.mu), ai2thor_state_dict(adam.nu)
+    count = torch.tensor(float(adam.count))
+    return ai2thor_state_dict(rec["params"]), {
+        k: {"step": count, "exp_avg": mu[k], "exp_avg_sq": nu[k]}
+        for k in mu}
+
+
+@pytest.mark.slow
+def test_var_at_bf16_teacher_forced(var_runs_bf16):
+    """F5's discriminator: at every one of the 15 steps the port's bf16
+    step starts from JAX's parameters and optax Adam state before that
+    step, on the same batch. Its loss must lie within 2 EPS of JAX's (the
+    one-step bound of tests/test_torch_bf16.py) and its parameters after
+    the step within the one-step Adam bound of JAX's (2 lr + 5e-5, the
+    median at most lr/10). The replay from the port's own state before
+    each step must give its free-running loss exactly.
+
+    What the loss comparison can see, as controls:
+    - JAX's state before step s-1 in place of s must fail the loss bound
+      at every step that follows a step at the base LR (1e-4). After the
+      decay (2e-5, then 4e-6) one Adam step moves the loss by less than
+      2 EPS, so there it is only printed.
+    - The port's VAR convs summing their partial sums in bf16
+      (rl_check.bf16_partial_sums), from JAX's state: printed. It moves a
+      step's loss by less than 2 EPS, so the bound cannot tell such a
+      one-step fault from the port's arithmetic."""
+    run = var_runs_bf16
+    jsteps, tsteps = run["jsteps"], run["tsteps"]
+    jloss = np.concatenate([j["losses"] for j in run["jlog"]])
+    tfree = np.concatenate([t["losses"] for t in run["tlog"]])
+    lrs = np.concatenate([t["lr"] for t in run["tlog"]])
+    n = len(jloss)
+    assert len(jsteps) == len(tsteps) == n == VAR_EPOCHS * 5
+    after = [s["params"] for s in jsteps[1:]] + [run["jlog"][-1]["params"]]
+    free = np.abs(tfree - jloss) / EPS
+    forced, behind, planted = np.zeros(n), np.full(n, np.nan), np.zeros(n)
+    for s in range(n):
+        for a, b in zip(jsteps[s]["batch"], tsteps[s]["batch"]):
+            np.testing.assert_array_equal(b.numpy(), a, err_msg=f"step {s}")
+        loss, params = _port_step(run, s, *_jax_state(run, s))
+        forced[s] = abs(loss - jloss[s]) / EPS
+        want = ai2thor_state_dict(after[s])
+        diffs = torch.cat([(params[k] - v).abs().ravel()
+                           for k, v in want.items()])
+        bound, mid = 2 * float(lrs[s]) + 5e-5, float(lrs[s]) / 10
+        print(f"step {s:2d}: loss gap {forced[s]:.3f} EPS teacher-forced, "
+              f"{free[s]:.3f} free-running; params max "
+              f"{diffs.max().item():.3e} (bound {bound:.3e}) median "
+              f"{diffs.median().item():.3e} (bound {mid:.3e})")
+        assert diffs.max().item() <= bound, s
+        assert diffs.median().item() <= mid, s
+        if s > 0:
+            loss = _port_step(run, s, *_jax_state(run, s - 1))[0]
+            behind[s] = abs(loss - jloss[s]) / EPS
+        with bf16_partial_sums(run["ttr"].model):
+            loss = _port_step(run, s, *_jax_state(run, s))[0]
+        planted[s] = abs(loss - jloss[s]) / EPS
+        loss = _port_step(run, s, tsteps[s]["params"], tsteps[s]["adam"])[0]
+        assert loss == tfree[s], (s, loss, tfree[s])
+    print("control, JAX's state one step behind, loss gap in EPS:",
+          np.round(behind, 3).tolist())
+    print("control, bf16 partial sums from JAX's state, loss gap in EPS:",
+          np.round(planted, 3).tolist())
+    assert forced.max() <= 2, np.round(forced, 3).tolist()
+    at_base = np.flatnonzero(lrs[:-1] == lrs[0]) + 1
+    assert (behind[at_base] > 2).all(), np.round(behind, 3).tolist()
 
 
 def test_initial_draw_matches_jax_in_distribution():

@@ -186,3 +186,23 @@ def test_worker_preload_creates_no_cuda_state():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_adapter_modules_are_covered():
+    """The simulator adapters are among the modules scanned and imported
+    with jax and var_tpu blocked here (each imports its simulator only
+    when it connects, so none is needed to import them)."""
+    modules = set(_modules())
+    for name in ("envs.adapters", "envs.adapters.debug_draw",
+                 "envs.adapters.pybullet_arm", "envs.adapters.ithor"):
+        assert f"var_tpu_torch.{name}" in modules
+
+
+@pytest.mark.parametrize("name", ["fake_backends", "torch_adapter_standins"])
+def test_stand_in_helpers_import_nothing_forbidden(name):
+    """chip_smoke.py's phase 38 imports the simulator stand-ins from
+    tests/: they import numpy and each other only."""
+    path = ROOT / "tests" / f"{name}.py"
+    tops = {n.split(".")[0] for n in _imported_names(path)}
+    assert tops <= {"__future__", "sys", "types", "numpy", "tests"}, tops
+    assert not any(VAR_TPU.search(n) for n in _imported_names(path))

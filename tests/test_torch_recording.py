@@ -6,9 +6,8 @@ JPEG through cv2.imwrite; the port needs neither cv2 nor PIL: its own
 bilinear resize and a zlib PNG, RGB, `.png` in place of `.jpg`.
 
 Tolerances:
-- the resize against cv2.resize within 1 grey level: cv2 sums uint8
-  bilinear taps in 11-bit fixed point, the port in float64, so a value that
-  falls within rounding of a half level lands on either side;
+- the uint8 resize against cv2.resize: equal, value for value (the port
+  sums the taps in cv2's 11-bit fixed point, `resize_linear_u8`);
 - the PNG decoded with zlib, the interval and naming rules, and the sims'
   trajectories with render=True (observations, the per-step current sound
   drawn from the sim's RandomState, rewards, dones, the recorded frames'
@@ -61,18 +60,39 @@ def _decode_png(data: bytes) -> np.ndarray:
                                   (96, 96), (300, 130)])
 def test_resize_matches_cv2_within_one_level(size):
     """The arm's and the grid's episodeImgSize (224, 480), a shrink that
-    is not cv2's 2x area special case, the identity, a mixed one."""
+    is not cv2's 2x area special case, the identity, a mixed one. The name
+    is older than the exact resize: the frames are now equal."""
     rng = np.random.RandomState(0)
     img = rng.randint(0, 256, (96, 96, 3)).astype(np.uint8)
     h, w = size
-    got = trec.resize_bilinear(img, w, h)
+    got = trec.resize_linear_u8(img, w, h)
     want = cv2.resize(img, (w, h))
     assert got.shape == want.shape and got.dtype == np.uint8
-    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+    np.testing.assert_array_equal(got, want)
     grey = img[..., 0]
-    diff = trec.resize_bilinear(grey, w, h).astype(int) - cv2.resize(
-        grey, (w, h)).astype(int)
-    assert np.abs(diff).max() <= 1
+    np.testing.assert_array_equal(trec.resize_linear_u8(grey, w, h),
+                                  cv2.resize(grey, (w, h)))
+
+
+@pytest.mark.parametrize("shape", [
+    (75, 75, 3), (300, 300, 3), (75, 100, 3), (61, 47, 3), (96, 96, 3),
+    (200, 150), (97, 33, 3), (33, 97), (5, 7, 3), (1, 9, 3), (400, 75, 3),
+    (192, 192, 3)])
+def test_resize_linear_u8_equals_cv2(shape):
+    """cv2's fixed-point INTER_LINEAR, bit for bit, on seeded frames: the
+    arm's crop (75 x 75) and iTHOR's frame (300 x 300) to 96 x 96, odd
+    widths and heights, one channel, the identity and cv2's 2x shrink,
+    each also to an upscale and a mixed size."""
+    rng = np.random.RandomState(sum(shape))
+    for _ in range(5):
+        img = rng.randint(0, 256, shape).astype(np.uint8)
+        for w, h in ((96, 96), (50, 70), (13, 200)):
+            got = trec.resize_linear_u8(img, w, h)
+            assert got.dtype == np.uint8
+            np.testing.assert_array_equal(got, cv2.resize(img, (w, h)),
+                                          err_msg=f"{shape} -> {(h, w)}")
+    with pytest.raises(TypeError):
+        trec.resize_linear_u8(img.astype(np.float32), 96, 96)
 
 
 @pytest.mark.parametrize("shape", [(96, 96, 3), (7, 13, 3), (5, 9)])
@@ -121,8 +141,7 @@ def test_interval_and_naming_match_jax(tmp_path, monkeypatch, interval):
                 os.path.splitext(os.path.basename(want))[0] + ".png")
             with open(got, "rb") as f:
                 frame = _decode_png(f.read())
-            diff = frame.astype(int) - captured[want][..., ::-1]
-            assert np.abs(diff).max() <= 1
+            np.testing.assert_array_equal(frame, captured[want][..., ::-1])
     expected = 0 if interval <= 0 else 2 * len(range(0, 7, interval))
     assert len(captured) == expected
     port_dir = tmp_path / "port"

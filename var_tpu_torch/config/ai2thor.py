@@ -4,7 +4,8 @@ A copy of var_tpu/config/ai2thor.py: the same knob names, defaults and
 semantics, so that a config file or a --set line means the same in both
 packages. `simBackend='builtin'` selects the port's grid sims
 (var_tpu_torch/envs/grid_sim.py on the host, grid_sim_device.py on the
-device); the real iTHOR adapter is not ported.
+device); `simBackend='ithor'` the adapter onto the real iTHOR scenes
+(var_tpu_torch/envs/adapters/ithor.py, which needs the ai2thor package).
 """
 import os
 from collections import OrderedDict

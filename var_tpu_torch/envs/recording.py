@@ -3,10 +3,10 @@ fourInARow.py:101-108, RL_env_VAR.py:460-467 saveEpisodeImage).
 
 The JAX package resizes with cv2.resize (INTER_LINEAR) and writes a JPEG
 through cv2.imwrite. The port keeps the same interval and naming rules but
-needs neither cv2 nor PIL: `resize_bilinear` is cv2's INTER_LINEAR
-(half-pixel centres, edge clamping) in numpy, and `write_png` writes a
-lossless PNG with zlib from the standard library. So the port's frames are
-`<tag><episode>_<step>.png`, in RGB.
+needs neither cv2 nor PIL: `resize_linear_u8` is cv2's fixed-point
+INTER_LINEAR for uint8, value for value (the sims' frames are all
+uint8), and `write_png` writes a lossless PNG with zlib from the standard
+library. So the port's frames are `<tag><episode>_<step>.png`, in RGB.
 """
 from __future__ import annotations
 
@@ -17,35 +17,52 @@ import zlib
 import numpy as np
 
 
-def _taps(n_out: int, n_in: int):
-    """Source indices and weights along one axis, as cv2's INTER_LINEAR:
-    the centre of output pixel i maps to (i + 0.5) * n_in / n_out - 0.5,
-    clamped to the edges."""
-    src = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
-    src = np.clip(src, 0.0, n_in - 1)
-    i0 = np.floor(src).astype(np.int64)
-    i1 = np.minimum(i0 + 1, n_in - 1)
-    return i0, i1, (src - i0)
+# cv2's INTER_RESIZE_COEF_SCALE: the weights of the uint8 path are integers
+# summing to 2048
+_COEF = 2048
 
 
-def resize_bilinear(image: np.ndarray, width: int, height: int) -> np.ndarray:
-    """cv2.resize(image, (width, height)) with INTER_LINEAR, for an (H, W)
-    or (H, W, C) array; uint8 input is rounded back to uint8 (cv2 sums in
-    fixed point, so a value may differ from it by one level)."""
+def _taps_u8(n_out: int, n_in: int, clamp: bool):
+    """Source indices and integer weights along one axis, as cv2 computes
+    them for uint8: the offset in float32 from the double scale, each
+    weight rounded half to even from float32. Columns (`clamp`) put the
+    whole weight on the edge pixel outside the image; rows keep their
+    weights and only clip the two indices."""
+    scale = 1.0 / (n_out / n_in)
+    f = ((np.arange(n_out) + 0.5) * scale - 0.5).astype(np.float32)
+    i0 = np.floor(f).astype(np.int64)
+    f = f - i0.astype(np.float32)
+    if clamp:
+        edge = (i0 < 0) | (i0 >= n_in - 1)
+        f[edge] = 0
+        i0 = np.clip(i0, 0, n_in - 1)
+    a0 = np.rint((np.float32(1) - f) * np.float32(_COEF)).astype(np.int64)
+    return i0, a0, _COEF - a0
+
+
+def resize_linear_u8(image: np.ndarray, width: int,
+                     height: int) -> np.ndarray:
+    """cv2.resize(image, (width, height)) (INTER_LINEAR) of an (H, W) or
+    (H, W, C) uint8 array, bit for bit: each row is summed in integers
+    with 11-bit weights, then two rows are blended as cv2's vector path
+    does, ((b0 (r0 >> 4)) >> 16) + ((b1 (r1 >> 4)) >> 16), rounded by
+    (+2) >> 2."""
     img = np.asarray(image)
-    y0, y1, fy = _taps(height, img.shape[0])
-    x0, x1, fx = _taps(width, img.shape[1])
-    src = img.astype(np.float64)
-    if img.ndim == 3:
-        fy, fx = fy[:, None, None], fx[None, :, None]
-    else:
-        fy, fx = fy[:, None], fx[None, :]
-    top = src[y0][:, x0] * (1 - fx) + src[y0][:, x1] * fx
-    bottom = src[y1][:, x0] * (1 - fx) + src[y1][:, x1] * fx
-    out = top * (1 - fy) + bottom * fy
-    if img.dtype == np.uint8:
-        return np.clip(np.floor(out + 0.5), 0, 255).astype(np.uint8)
-    return out.astype(img.dtype)
+    if img.dtype != np.uint8:
+        raise TypeError(f"resize_linear_u8 needs uint8, got {img.dtype}")
+    h_in, w_in = img.shape[:2]
+    x0, a0, a1 = _taps_u8(width, w_in, clamp=True)
+    y0, b0, b1 = _taps_u8(height, h_in, clamp=False)
+    x1 = np.minimum(x0 + 1, w_in - 1)
+    chan = (None,) * (img.ndim - 2)
+    src = img.astype(np.int64)
+    rows = src[:, x0] * a0[(slice(None),) + chan] \
+        + src[:, x1] * a1[(slice(None),) + chan]
+    r0 = rows[np.clip(y0, 0, h_in - 1)] >> 4
+    r1 = rows[np.clip(y0 + 1, 0, h_in - 1)] >> 4
+    col = (slice(None), None) + chan
+    out = (((b0[col] * r0) >> 16) + ((b1[col] * r1) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8)
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -92,6 +109,6 @@ def save_episode_image(config, image_hwc: np.ndarray, episode: int,
         return None
     os.makedirs(config.episodeImgSaveDir, exist_ok=True)
     h, w, _ = config.episodeImgSize
-    img = resize_bilinear(image_hwc, w, h)
+    img = resize_linear_u8(image_hwc, w, h)
     path = os.path.join(config.episodeImgSaveDir, f"{tag}{episode}_{step}.png")
     return write_png(path, img)

@@ -23,12 +23,19 @@ stays available by name; its workers keep the parent's numpy, BLAS pool
 and all. Env constructors and the audio store
 travel with plain pickle (factory.py::EnvThunk): the card's machine has
 no cloudpickle.
+
+An exception in a worker (its env's constructor, reset or step: say the
+ImportError of a simulator adapter whose package is missing) is sent to
+the parent, which stops every worker and raises it there, with the
+worker's traceback as a note.
 """
 from __future__ import annotations
 
 import ctypes
 import multiprocessing as mp
 import os
+import pickle
+import traceback
 from collections import OrderedDict
 
 import numpy as np
@@ -136,11 +143,21 @@ class ShmemVecEnv(VecEnv):
                 raise TimeoutError(f"ShmemVecEnv worker {idx} did not "
                                    f"answer within {self.timeout} s")
         try:
-            return pipe.recv()
+            msg = pipe.recv()
         except EOFError:  # the worker closed its end: it has died
             proc.join(timeout=min(self.timeout, 10.0))
             raise RuntimeError(f"ShmemVecEnv worker {idx} died (exitcode "
                                f"{proc.exitcode})") from None
+        if isinstance(msg, _WorkerError):
+            # the env stack is unusable: stop every worker, then raise the
+            # worker's own exception here
+            self.waiting_step = False
+            self._stop()
+            self.closed = True
+            exc = msg.exc
+            exc.add_note(f"in ShmemVecEnv worker {idx}:\n{msg.trace}")
+            raise exc
+        return msg
 
     def step_wait(self):
         self.waiting_step = False  # owed no more, even if a worker fails
@@ -221,6 +238,18 @@ def _memory():
     return resident * page, (resident - shared) * page
 
 
+class _WorkerError:
+    """A worker's exception and its formatted traceback, sent in place of
+    an answer."""
+
+    def __init__(self, exc: BaseException, trace: str):
+        try:
+            pickle.dumps(exc)
+        except Exception:
+            exc = RuntimeError(f"{type(exc).__name__}: {exc}")
+        self.exc, self.trace = exc, trace
+
+
 def _subproc_worker(pipe, parent_pipe, env_fn, obs_buf, obs_shapes,
                     obs_dtypes, keys, audio, env_idx=0):
     """(reference: shmem_vec_env.py:117-154). One torch thread: with one
@@ -243,11 +272,12 @@ def _subproc_worker(pipe, parent_pipe, env_fn, obs_buf, obs_shapes,
                 np.copyto(dst, np.asarray(obs[k]).reshape(obs_shapes[k]))
 
     parent_pipe.close()
-    env = env_fn()
-    if audio is not None:
-        env.unwrapped.audio = audio
-        audio.loadData()
+    env = None
     try:
+        env = env_fn()
+        if audio is not None:
+            env.unwrapped.audio = audio
+            audio.loadData()
         while True:
             cmd, data = pipe.recv()
             if cmd == "reset":
@@ -276,5 +306,13 @@ def _subproc_worker(pipe, parent_pipe, env_fn, obs_buf, obs_shapes,
                 raise RuntimeError(f"Got unrecognized cmd {cmd}")
     except KeyboardInterrupt:
         print("ShmemVecEnv worker: got KeyboardInterrupt")
+    except (EOFError, BrokenPipeError):
+        pass  # the parent closed its end: it has stopped the stack
+    except Exception as e:
+        try:
+            pipe.send(_WorkerError(e, traceback.format_exc()))
+        except (BrokenPipeError, OSError):
+            pass
     finally:
-        env.close()
+        if env is not None:
+            env.close()
