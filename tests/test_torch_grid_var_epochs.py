@@ -29,8 +29,11 @@ in bf16 on both sides, tests/test_torch_bf16.py) are held at that file's
 bounds in units of bf16's EPS = 2^-8: each step's loss within 2 EPS, the
 parameters within the same Adam bound with the median difference at most
 lr/10 a step; and each step taken by the port from JAX's state before it
-(teacher-forced) at the same bounds. These cases carry `slow`: they train
-both packages again.
+(teacher-forced) at the same bounds. Fault F5's yardsticks beside them: 8
+twins of JAX's bf16 run that differ only in the order of each step's
+batch rows (how far the reference parts from itself), and each step's
+parameter update per element against JAX's. These cases carry `slow`:
+they train both packages again.
 """
 import os
 
@@ -142,12 +145,13 @@ def _var_runs(work, teacher=False, **dtype):
         return losses, n
 
     jtr._run_epoch_indexed = jrecord
-    jsteps = []
+    jsteps, jbank, jstep = [], [], None
     if teacher:
         jstep = jtr._train_step_indexed
 
         def jteacher(state, *args):
             # copies: the jitted step donates its state
+            jbank[:] = args[:3]
             jsteps.append(dict(params=_np_tree(state.params),
                                adam=_np_tree(state.opt_state[1]),
                                batch=[np.array(a) for a in args[3:]]))
@@ -199,7 +203,7 @@ def _var_runs(work, teacher=False, **dtype):
         del ttr._train_step_indexed
     return dict(jds=jds, tds=tds, jlog=jlog, tlog=tlog, init=init,
                 jcfg=jcfg, tcfg=tcfg, jtr=jtr, ttr=ttr, jsteps=jsteps,
-                tsteps=tsteps)
+                tsteps=tsteps, jstep=jstep, jbank=jbank)
 
 
 def test_var_datasets_and_epoch_draws_are_equal(var_runs):
@@ -243,11 +247,13 @@ def test_var_parameters_match_jax_after_each_epoch(var_runs):
 
 @pytest.mark.slow
 @pytest.mark.parametrize("what", ["losses", "parameters"])
-def test_var_at_bf16_matches_jax_every_epoch(var_runs_bf16, var_runs, what):
+def test_var_at_bf16_matches_jax_every_epoch(var_runs_bf16, var_runs, what,
+                                            request):
     """A2's 3 epochs at computeDtype='bfloat16': every step's loss within 2
     EPS of JAX's and the LR equal; the parameters after each epoch within
     the Adam bound, the median at most lr/10 a step. Beside the port's
-    loss gaps it prints JAX's own bf16-against-float32 gaps."""
+    loss gaps it prints JAX's own bf16-against-float32 gaps and the JAX
+    twins' largest gap at each step."""
     jlog, tlog = var_runs_bf16["jlog"], var_runs_bf16["tlog"]
     assert len(jlog) == len(tlog) == VAR_EPOCHS
     if what == "losses":
@@ -260,6 +266,9 @@ def test_var_at_bf16_matches_jax_every_epoch(var_runs_bf16, var_runs, what):
                   f"JAX bf16 against JAX float32 "
                   f"{np.round(own, 3).tolist()}")
             np.testing.assert_array_equal(t["lr"], j["lr"])
+        twins = request.getfixturevalue("bf16_twins")["jax"]
+        print("the 8 JAX twins' largest gap to JAX at each step, in EPS:",
+              np.round(twins.max(axis=0), 3).tolist())
         assert max(g.max() for g in gaps) <= 2
         return
     moved = median = 0.0
@@ -307,8 +316,140 @@ def _jax_state(run, source):
         for k in mu}
 
 
+TWINS = range(1, 9)
+PARTED = (9, 13)  # the steps at which the port's loss parts from JAX's
+
+
+def _twin_orders(k, n):
+    """Twin k's row order at each of n steps: permutations of the batch
+    drawn from numpy.random.default_rng(k), the identity redrawn."""
+    rng, out = np.random.default_rng(k), []
+    while len(out) < n:
+        order = rng.permutation(VAR_BATCH)
+        if (order != np.arange(VAR_BATCH)).any():
+            out.append(order)
+    return out
+
+
+def _update_gaps(after, start, want_after, want_start):
+    """Per parameter (dicts in the port's names): the sum over its
+    elements of |(after - start) - (want_after - want_start)|, the
+    difference between two steps' parameter updates (in float64, so each
+    update is exact), and its element count."""
+    out = {}
+    for k, w in want_after.items():
+        d = ((np.asarray(after[k], np.float64)
+              - np.asarray(start[k], np.float64))
+             - (np.asarray(w, np.float64)
+                - np.asarray(want_start[k], np.float64)))
+        out[k] = (float(np.abs(d).sum()), d.size)
+    return out
+
+
+def _update_gap(after, start, want_after, want_start, lr):
+    """F5's per-element statistic U: the mean over every parameter element
+    of the update difference (_update_gaps), in units of lr."""
+    gaps = _update_gaps(after, start, want_after, want_start).values()
+    return sum(g for g, _ in gaps) / sum(n for _, n in gaps) / lr
+
+
+def _spacing_floor(params, lr):
+    """One float32 rounding of every parameter, as U: the mean spacing of
+    the parameters' float32 values in units of lr."""
+    sp = [np.spacing(np.abs(np.asarray(v, np.float32))).ravel()
+          for v in params.values()]
+    return float(np.concatenate(sp).astype(np.float64).mean()) / lr
+
+
+def _jax_free_run(run, orders=None, twins=(), at=()):
+    """JAX's bf16 run again from its initial weights and a fresh Adam
+    state, through its own jitted step on each step's recorded batch, the
+    batch's rows (each with all its indices and clip draws) in `orders`
+    (None: as recorded). Returns every step's loss and, for each row
+    order in `twins`, U at the steps `at` (NaN at the others) of JAX's
+    step from this run's state on the batch in that order against the
+    run's own step."""
+    lrs = np.concatenate([t["lr"] for t in run["tlog"]])
+    params = jax.tree_util.tree_map(jnp.asarray, run["init"])
+    state = jpretext.TrainState(params, run["jtr"].tx.init(params),
+                                jnp.asarray(0, jnp.int32))
+    losses, gaps = [], np.full((len(twins), len(lrs)), np.nan)
+    for s, rec in enumerate(run["jsteps"]):
+        batch = [a if orders is None else a[orders[s]] for a in rec["batch"]]
+        stepped = [run["jstep"](jax.tree_util.tree_map(jnp.copy, state),
+                                *run["jbank"], *(jnp.asarray(a[o[s]])
+                                                 for a in batch))[0].params
+                   for o in (twins if s in at else ())]
+        state, loss = run["jstep"](state, *run["jbank"],
+                                   *(jnp.asarray(a) for a in batch))
+        losses.append(float(loss))
+        # both steps start from one state: U is the mean of |after - after'|
+        after = jax.tree_util.tree_leaves(state.params)
+        for k, p in enumerate(stepped):
+            diffs = [np.abs(np.asarray(a, np.float64) - np.asarray(b)).ravel()
+                     for a, b in zip(jax.tree_util.tree_leaves(p), after)]
+            gaps[k, s] = np.concatenate(diffs).mean() / float(lrs[s])
+    return np.array(losses), gaps
+
+
+def _port_free_run(run, orders=None):
+    """_jax_free_run for the port: its bf16 run again from JAX's initial
+    weights and a fresh Adam state on its own recorded batches."""
+    ttr = run["ttr"]
+    ttr.model.load_state_dict(ai2thor_state_dict(run["init"]))
+    ttr.optimizer.state.clear()
+    losses = []
+    for s, rec in enumerate(run["tsteps"]):
+        batch = [a if orders is None else a[torch.as_tensor(orders[s])]
+                 for a in rec["batch"]]
+        ttr.step = s
+        losses.append(float(ttr._train_step_indexed(rec["bank"], *batch)))
+    return np.array(losses)
+
+
+@pytest.fixture(scope="module")
+def bf16_twins(var_runs_bf16):
+    """F5's yardstick, the reference's own bf16 spread: 8 twins of JAX's
+    bf16 run that differ from it only in the order of each step's 4
+    triplet rows (the triplet loss is a batch mean, so only the order in
+    which its terms are summed changes), and the port's 8 twins of its
+    own run. In units of EPS, at every step: `port` the port's gap to
+    JAX, `jax` each JAX twin's gap to JAX (g_k), `own` each port twin's
+    gap to the port; `one_step` each JAX twin's U (_update_gap) from
+    JAX's own state at the steps where the free-running losses part
+    (PARTED); the replays of both runs in their recorded order."""
+    run = var_runs_bf16
+    jloss = np.concatenate([j["losses"] for j in run["jlog"]])
+    tloss = np.concatenate([t["losses"] for t in run["tlog"]])
+    orders = [_twin_orders(k, len(jloss)) for k in TWINS]
+    jreplay, one_step = _jax_free_run(run, twins=orders, at=PARTED)
+    return dict(
+        port=np.abs(tloss - jloss) / EPS,
+        jax=np.abs([_jax_free_run(run, o)[0] - jloss for o in orders]) / EPS,
+        own=np.abs([_port_free_run(run, o) - tloss for o in orders]) / EPS,
+        one_step=one_step,
+        replays=(jloss, jreplay, tloss, _port_free_run(run)))
+
+
 @pytest.mark.slow
-def test_var_at_bf16_teacher_forced(var_runs_bf16):
+def test_var_at_bf16_twins_of_the_reference(bf16_twins):
+    """The twins' harness: each run replayed in its recorded order gives
+    its free-running losses exactly, and the permutation moves JAX's
+    losses by more than 0.5 EPS at some step (else it is too weak a
+    perturbation to measure the spread by). Prints every twin's gap
+    beside the port's."""
+    jloss, jreplay, tloss, treplay = bf16_twins["replays"]
+    np.testing.assert_array_equal(jreplay, jloss)
+    np.testing.assert_array_equal(treplay, tloss)
+    for s, p in enumerate(bf16_twins["port"]):
+        print(f"step {s:2d}: port {p:.3f} EPS; JAX twins "
+              f"{np.round(bf16_twins['jax'][:, s], 3).tolist()}; port twins "
+              f"{np.round(bf16_twins['own'][:, s], 3).tolist()}")
+    assert bf16_twins["jax"].max() > 0.5
+
+
+@pytest.mark.slow
+def test_var_at_bf16_teacher_forced(var_runs_bf16, bf16_twins):
     """F5's discriminator: at every one of the 15 steps the port's bf16
     step starts from JAX's parameters and optax Adam state before that
     step, on the same batch. Its loss must lie within 2 EPS of JAX's (the
@@ -325,7 +466,15 @@ def test_var_at_bf16_teacher_forced(var_runs_bf16):
     - The port's VAR convs summing their partial sums in bf16
       (rl_check.bf16_partial_sums), from JAX's state: printed. It moves a
       step's loss by less than 2 EPS, so the bound cannot tell such a
-      one-step fault from the port's arithmetic."""
+      one-step fault from the port's arithmetic.
+
+    Per element, the update gap U (_update_gap: the mean of |update -
+    JAX's update| in units of the step's LR) against its threshold, the
+    larger of the 8 JAX twins' U from JAX's own state (bf16_twins, at
+    PARTED only) and one float32 spacing of the parameters: both controls
+    must exceed it at PARTED, where the free-running losses part. The
+    port's U is printed with the three parameters that carry most of
+    it."""
     run = var_runs_bf16
     jsteps, tsteps = run["jsteps"], run["tsteps"]
     jloss = np.concatenate([j["losses"] for j in run["jlog"]])
@@ -336,12 +485,23 @@ def test_var_at_bf16_teacher_forced(var_runs_bf16):
     after = [s["params"] for s in jsteps[1:]] + [run["jlog"][-1]["params"]]
     free = np.abs(tfree - jloss) / EPS
     forced, behind, planted = np.zeros(n), np.full(n, np.nan), np.zeros(n)
+    gap = {k: np.full(n, np.nan) for k in ("port", "behind", "planted")}
+    floor, tops = np.zeros(n), []
     for s in range(n):
         for a, b in zip(jsteps[s]["batch"], tsteps[s]["batch"]):
             np.testing.assert_array_equal(b.numpy(), a, err_msg=f"step {s}")
-        loss, params = _port_step(run, s, *_jax_state(run, s))
+        start = _jax_state(run, s)
+        loss, params = _port_step(run, s, *start)
         forced[s] = abs(loss - jloss[s]) / EPS
         want = ai2thor_state_dict(after[s])
+        lr = float(lrs[s])
+        per = _update_gaps(params, start[0], want, start[0])
+        total = sum(g for g, _ in per.values())
+        gap["port"][s] = total / sum(c for _, c in per.values()) / lr
+        worst = sorted(per, key=lambda k: -per[k][0])[:3]
+        tops.append(", ".join(f"{k} {per[k][0] / (total or 1):.0%}"
+                              for k in worst))
+        floor[s] = _spacing_floor(want, lr)
         diffs = torch.cat([(params[k] - v).abs().ravel()
                            for k, v in want.items()])
         bound, mid = 2 * float(lrs[s]) + 5e-5, float(lrs[s]) / 10
@@ -352,20 +512,36 @@ def test_var_at_bf16_teacher_forced(var_runs_bf16):
         assert diffs.max().item() <= bound, s
         assert diffs.median().item() <= mid, s
         if s > 0:
-            loss = _port_step(run, s, *_jax_state(run, s - 1))[0]
+            prev = _jax_state(run, s - 1)
+            loss, stepped = _port_step(run, s, *prev)
             behind[s] = abs(loss - jloss[s]) / EPS
+            gap["behind"][s] = _update_gap(stepped, prev[0], want, start[0],
+                                           lr)
         with bf16_partial_sums(run["ttr"].model):
-            loss = _port_step(run, s, *_jax_state(run, s))[0]
+            loss, stepped = _port_step(run, s, *start)
         planted[s] = abs(loss - jloss[s]) / EPS
+        gap["planted"][s] = _update_gap(stepped, start[0], want, start[0], lr)
         loss = _port_step(run, s, tsteps[s]["params"], tsteps[s]["adam"])[0]
         assert loss == tfree[s], (s, loss, tfree[s])
     print("control, JAX's state one step behind, loss gap in EPS:",
           np.round(behind, 3).tolist())
     print("control, bf16 partial sums from JAX's state, loss gap in EPS:",
           np.round(planted, 3).tolist())
+    twins = bf16_twins["one_step"].max(axis=0)
+    u_bound = np.fmax(twins, floor)
+    for s in range(n):
+        print(f"step {s:2d}: update gap U in lr: port {gap['port'][s]:.3e}, "
+              f"one step behind {gap['behind'][s]:.3e}, bf16 partial sums "
+              f"{gap['planted'][s]:.3e}; JAX twins' largest {twins[s]:.3e}, "
+              f"float32 spacing {floor[s]:.3e}; the port's largest shares "
+              f"{tops[s]}")
     assert forced.max() <= 2, np.round(forced, 3).tolist()
     at_base = np.flatnonzero(lrs[:-1] == lrs[0]) + 1
     assert (behind[at_base] > 2).all(), np.round(behind, 3).tolist()
+    # U sees both controls where the loss bound does not
+    at = list(PARTED)
+    for name in ("behind", "planted"):
+        assert (gap[name][at] > u_bound[at]).all(), (name, gap[name])
 
 
 def test_initial_draw_matches_jax_in_distribution():
