@@ -632,6 +632,20 @@ def test_make_entry_points_builds_the_adapters(env):
                and "adapters" not in c.__module__ for c in builtin)
 
 
+@pytest.mark.parametrize("backend", [None, "pybullet", "ithor"])
+def test_make_entry_points_refuses_an_unknown_env(backend):
+    """An env neither package has raises what the JAX package raises:
+    NotImplementedError with the env's name as its one argument."""
+    over = {} if backend is None else {"simBackend": backend}
+    errors = []
+    for tag, make in (("jax", jmake_entry_points),
+                      ("port", make_entry_points)):
+        with pytest.raises(NotImplementedError) as e:
+            make(_cfg(tag, "arms", **over), "kitchen")
+        errors.append((type(e.value), e.value.args))
+    assert errors[0] == errors[1] == (NotImplementedError, ("kitchen",))
+
+
 @pytest.mark.parametrize("env", ["arms", "ai2thor"])
 def test_missing_simulator_raises_jax_import_error(env):
     """No stand-in, no simulator: the first reset raises the ImportError

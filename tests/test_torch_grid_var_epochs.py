@@ -46,6 +46,7 @@ import torch
 import var_tpu.config as jconfig
 from var_tpu.data import audio_store as jstore
 from var_tpu.data import triplets as jtriplets
+from var_tpu.ops.audio import sound_features as jsound_features
 from var_tpu.train import pretext as jpretext
 from var_tpu_torch import config as tconfig
 from var_tpu_torch.convert import ai2thor_state_dict
@@ -346,11 +347,12 @@ def _update_gaps(after, start, want_after, want_start):
     return out
 
 
-def _update_gap(after, start, want_after, want_start, lr):
-    """F5's per-element statistic U: the mean over every parameter element
-    of the update difference (_update_gaps), in units of lr."""
-    gaps = _update_gaps(after, start, want_after, want_start).values()
-    return sum(g for g, _ in gaps) / sum(n for _, n in gaps) / lr
+def _mean_gap(per, lr, keep=lambda name: True):
+    """F5's per-element statistic U from per-parameter gaps
+    (_update_gaps): the mean over the elements of the parameters `keep`
+    selects (every one by default), in units of lr."""
+    kept = [v for k, v in per.items() if keep(k)]
+    return sum(g for g, _ in kept) / sum(n for _, n in kept) / lr
 
 
 def _spacing_floor(params, lr):
@@ -366,14 +368,15 @@ def _jax_free_run(run, orders=None, twins=(), at=()):
     state, through its own jitted step on each step's recorded batch, the
     batch's rows (each with all its indices and clip draws) in `orders`
     (None: as recorded). Returns every step's loss and, for each row
-    order in `twins`, U at the steps `at` (NaN at the others) of JAX's
-    step from this run's state on the batch in that order against the
-    run's own step."""
-    lrs = np.concatenate([t["lr"] for t in run["tlog"]])
+    order in `twins` and each step of `at`, the per-parameter gaps
+    (_update_gaps, in the port's names) of JAX's step from this run's
+    state on the batch in that order against the run's own step (None at
+    the other steps)."""
     params = jax.tree_util.tree_map(jnp.asarray, run["init"])
     state = jpretext.TrainState(params, run["jtr"].tx.init(params),
                                 jnp.asarray(0, jnp.int32))
-    losses, gaps = [], np.full((len(twins), len(lrs)), np.nan)
+    losses = []
+    gaps = [[None] * len(run["jsteps"]) for _ in twins]
     for s, rec in enumerate(run["jsteps"]):
         batch = [a if orders is None else a[orders[s]] for a in rec["batch"]]
         stepped = [run["jstep"](jax.tree_util.tree_map(jnp.copy, state),
@@ -383,12 +386,11 @@ def _jax_free_run(run, orders=None, twins=(), at=()):
         state, loss = run["jstep"](state, *run["jbank"],
                                    *(jnp.asarray(a) for a in batch))
         losses.append(float(loss))
-        # both steps start from one state: U is the mean of |after - after'|
-        after = jax.tree_util.tree_leaves(state.params)
+        # both steps start from one state: the update gap is |after - after'|
+        after = ai2thor_state_dict(_np_tree(state.params))
         for k, p in enumerate(stepped):
-            diffs = [np.abs(np.asarray(a, np.float64) - np.asarray(b)).ravel()
-                     for a, b in zip(jax.tree_util.tree_leaves(p), after)]
-            gaps[k, s] = np.concatenate(diffs).mean() / float(lrs[s])
+            gaps[k][s] = _update_gaps(ai2thor_state_dict(_np_tree(p)), after,
+                                      after, after)
     return np.array(losses), gaps
 
 
@@ -415,19 +417,23 @@ def bf16_twins(var_runs_bf16):
     which its terms are summed changes), and the port's 8 twins of its
     own run. In units of EPS, at every step: `port` the port's gap to
     JAX, `jax` each JAX twin's gap to JAX (g_k), `own` each port twin's
-    gap to the port; `one_step` each JAX twin's U (_update_gap) from
-    JAX's own state at the steps where the free-running losses part
-    (PARTED); the replays of both runs in their recorded order."""
+    gap to the port; `one_step` each JAX twin's U (_mean_gap) from
+    JAX's own state at every step, `one_step_parts` the per-parameter
+    gaps it is made of (_update_gaps); the replays of both runs in their
+    recorded order."""
     run = var_runs_bf16
     jloss = np.concatenate([j["losses"] for j in run["jlog"]])
     tloss = np.concatenate([t["losses"] for t in run["tlog"]])
     orders = [_twin_orders(k, len(jloss)) for k in TWINS]
-    jreplay, one_step = _jax_free_run(run, twins=orders, at=PARTED)
+    jreplay, parts = _jax_free_run(run, twins=orders, at=range(len(jloss)))
+    lrs = np.concatenate([t["lr"] for t in run["tlog"]])
     return dict(
         port=np.abs(tloss - jloss) / EPS,
         jax=np.abs([_jax_free_run(run, o)[0] - jloss for o in orders]) / EPS,
         own=np.abs([_port_free_run(run, o) - tloss for o in orders]) / EPS,
-        one_step=one_step,
+        one_step=np.array([[_mean_gap(per, lr) for per, lr in zip(k, lrs)]
+                           for k in parts]),
+        one_step_parts=parts,
         replays=(jloss, jreplay, tloss, _port_free_run(run)))
 
 
@@ -468,7 +474,7 @@ def test_var_at_bf16_teacher_forced(var_runs_bf16, bf16_twins):
       step's loss by less than 2 EPS, so the bound cannot tell such a
       one-step fault from the port's arithmetic.
 
-    Per element, the update gap U (_update_gap: the mean of |update -
+    Per element, the update gap U (_mean_gap: the mean of |update -
     JAX's update| in units of the step's LR) against its threshold, the
     larger of the 8 JAX twins' U from JAX's own state (bf16_twins, at
     PARTED only) and one float32 spacing of the parameters: both controls
@@ -482,7 +488,7 @@ def test_var_at_bf16_teacher_forced(var_runs_bf16, bf16_twins):
     lrs = np.concatenate([t["lr"] for t in run["tlog"]])
     n = len(jloss)
     assert len(jsteps) == len(tsteps) == n == VAR_EPOCHS * 5
-    after = [s["params"] for s in jsteps[1:]] + [run["jlog"][-1]["params"]]
+    after = _teacher_after(run)
     free = np.abs(tfree - jloss) / EPS
     forced, behind, planted = np.zeros(n), np.full(n, np.nan), np.zeros(n)
     gap = {k: np.full(n, np.nan) for k in ("port", "behind", "planted")}
@@ -497,7 +503,7 @@ def test_var_at_bf16_teacher_forced(var_runs_bf16, bf16_twins):
         lr = float(lrs[s])
         per = _update_gaps(params, start[0], want, start[0])
         total = sum(g for g, _ in per.values())
-        gap["port"][s] = total / sum(c for _, c in per.values()) / lr
+        gap["port"][s] = _mean_gap(per, lr)
         worst = sorted(per, key=lambda k: -per[k][0])[:3]
         tops.append(", ".join(f"{k} {per[k][0] / (total or 1):.0%}"
                               for k in worst))
@@ -515,12 +521,13 @@ def test_var_at_bf16_teacher_forced(var_runs_bf16, bf16_twins):
             prev = _jax_state(run, s - 1)
             loss, stepped = _port_step(run, s, *prev)
             behind[s] = abs(loss - jloss[s]) / EPS
-            gap["behind"][s] = _update_gap(stepped, prev[0], want, start[0],
-                                           lr)
+            gap["behind"][s] = _mean_gap(_update_gaps(
+                stepped, prev[0], want, start[0]), lr)
         with bf16_partial_sums(run["ttr"].model):
             loss, stepped = _port_step(run, s, *start)
         planted[s] = abs(loss - jloss[s]) / EPS
-        gap["planted"][s] = _update_gap(stepped, start[0], want, start[0], lr)
+        gap["planted"][s] = _mean_gap(_update_gaps(
+            stepped, start[0], want, start[0]), lr)
         loss = _port_step(run, s, tsteps[s]["params"], tsteps[s]["adam"])[0]
         assert loss == tfree[s], (s, loss, tfree[s])
     print("control, JAX's state one step behind, loss gap in EPS:",
@@ -542,6 +549,307 @@ def test_var_at_bf16_teacher_forced(var_runs_bf16, bf16_twins):
     at = list(PARTED)
     for name in ("behind", "planted"):
         assert (gap[name][at] > u_bound[at]).all(), (name, gap[name])
+
+
+def _teacher_after(run):
+    """JAX's parameters after each of the recorded steps."""
+    return ([rec["params"] for rec in run["jsteps"][1:]]
+            + [run["jlog"][-1]["params"]])
+
+
+def _jax_inputs(run, s):
+    """Step `s`'s batch as JAX's indexed step feeds its model: the images
+    in [0, 1] and both sounds' MFCC (its own gathers and MFCC)."""
+    if "jinputs" not in run:
+        jtr = run["jtr"]
+        cfg = jtr.config
+
+        def inputs(bank_img, bank_wav, bank_len, img_idx, pos_idx, pos_zero,
+                   neg_idx, neg_zero):
+            feats = [jsound_features(
+                jnp.take(bank_wav, i, axis=0), jnp.take(bank_len, i, axis=0),
+                cfg.sound_dim[1], jtr._param, backend=cfg.audioBackend,
+                zero_mask=z) for i, z in ((pos_idx, pos_zero),
+                                           (neg_idx, neg_zero))]
+            image = jnp.take(bank_img, img_idx, axis=0)
+            if image.dtype == jnp.uint8:  # as its _loss_fn scales them
+                image = image.astype(jnp.float32) * (1.0 / 255.0)
+            return (image, *feats)
+
+        run["jinputs"] = jax.jit(inputs)
+    return run["jinputs"](*run["jbank"], *(jnp.asarray(a) for a in
+                                            run["jsteps"][s]["batch"]))
+
+
+def _jax_embed(run, params, s):
+    """JAX's batch embeddings of step `s` at `params`: the image and both
+    sounds."""
+    if "japply" not in run:
+        run["japply"] = jax.jit(run["jtr"].model.apply)
+    out = run["japply"]({"params": jax.tree_util.tree_map(
+        jnp.asarray, params)}, *_jax_inputs(run, s))
+    return {k: np.asarray(out[k], np.float32) for k in EMBEDDINGS}
+
+
+def _port_inputs(run, s):
+    """_jax_inputs for the port: its gathers and MFCC."""
+    ttr = run["ttr"]
+    rec = run["tsteps"][s]
+    bank = rec["bank"]
+    img_idx, pos_idx, pos_zero, neg_idx, neg_zero = rec["batch"]
+    with torch.no_grad():
+        image = bank["images"].index_select(0, img_idx)
+        if image.dtype == torch.uint8:  # as its _optimize scales them
+            image = image.float() * (1.0 / 255.0)
+        return (image, ttr._features(bank, pos_idx, pos_zero),
+                ttr._features(bank, neg_idx, neg_zero))
+
+
+def _port_embed(run, params, s):
+    """The port's batch embeddings of step `s` at `params` (the port's
+    names)."""
+    ttr = run["ttr"]
+    ttr.model.load_state_dict(params)
+    with torch.no_grad():
+        out = ttr.model(*_port_inputs(run, s))
+    return {k: out[k].float().numpy() for k in EMBEDDINGS}
+
+
+EMBEDDINGS = ("image_feat", "sound_feat_positive", "sound_feat_negative")
+EMBED_EPS = 4  # a component, in EPS (tests/test_torch_bf16.py)
+
+
+def _embed_gap(got, want):
+    """E: the largest per-component gap over the three embeddings, in
+    EPS."""
+    return max(float(np.abs(got[k] - want[k]).max()) for k in EMBEDDINGS) / EPS
+
+
+@pytest.mark.slow
+def test_var_at_bf16_embeddings_per_element(var_runs_bf16):
+    """F5's A1, the forward pass: at every step, the port from JAX's
+    parameters before it and JAX embed the step's batch (the image and
+    both sounds, each through its own package's gathers and MFCC); E(s)
+    is the largest per-component gap, in EPS, against EMBED_EPS. Controls
+    that must exceed it at PARTED for E to decide anything: JAX's
+    parameters one step behind, and the port's VAR convs summing their
+    partial sums in bf16 (rl_check.bf16_partial_sums)."""
+    run = var_runs_bf16
+    n = len(run["jsteps"])
+    port, behind, planted = np.zeros(n), np.full(n, np.nan), np.zeros(n)
+    for s in range(n):
+        want = _jax_embed(run, run["jsteps"][s]["params"], s)
+        start = ai2thor_state_dict(run["jsteps"][s]["params"])
+        got = _port_embed(run, start, s)
+        port[s] = _embed_gap(got, want)
+        if s > 0:
+            behind[s] = _embed_gap(_port_embed(
+                run, ai2thor_state_dict(run["jsteps"][s - 1]["params"]), s),
+                want)
+        with bf16_partial_sums(run["ttr"].model):
+            planted[s] = _embed_gap(_port_embed(run, start, s), want)
+        print(f"step {s:2d}: E in EPS: port {port[s]:.3f} ("
+              + ", ".join(f"{k} {np.abs(got[k] - want[k]).max() / EPS:.3f}"
+                          for k in EMBEDDINGS)
+              + f"), one step behind {behind[s]:.3f}, bf16 partial sums "
+              f"{planted[s]:.3f}")
+    valid = {k: bool((v[list(PARTED)] > EMBED_EPS).all())
+             for k, v in (("behind", behind), ("planted", planted))}
+    print("A1: the port's largest E", round(port.max(), 3), "at step",
+          int(port.argmax()), "; controls that fail at", PARTED, valid)
+    assert port.max() <= EMBED_EPS, np.round(port, 3).tolist()
+    # E sees one Adam step at the base LR (1e-4); at 2e-5 and 4e-6, and
+    # for the planted partial sums, it need not: then A1 decides nothing
+    lrs = np.concatenate([t["lr"] for t in run["tlog"]])
+    at_base = np.flatnonzero(lrs[:-1] == lrs[0]) + 1
+    assert (behind[at_base] > EMBED_EPS).all(), np.round(behind, 3).tolist()
+
+
+def _image_and_heads(name):
+    """A2's subset: the image branch and the two heads, no sound branch."""
+    return name.startswith(("img_branch.", "img_triplet.", "sound_triplet."))
+
+
+@pytest.mark.slow
+def test_var_at_bf16_update_without_the_bigru(var_runs_bf16, bf16_twins):
+    """F5's A2: U(s) and its threshold T(s) (the larger of the 8 JAX
+    twins' one-step U from JAX's state and one float32 spacing of the
+    parameters) over the image branch and the two heads only; the port
+    from JAX's state, and the two controls of the teacher-forced test,
+    which must exceed T at PARTED."""
+    run = var_runs_bf16
+    lrs = np.concatenate([t["lr"] for t in run["tlog"]])
+    after = _teacher_after(run)
+    n = len(lrs)
+    u = {k: np.full(n, np.nan) for k in ("port", "behind", "planted")}
+    twins, floor, per_layer = np.zeros(n), np.zeros(n), []
+    for s in range(n):
+        lr = float(lrs[s])
+        start = _jax_state(run, s)
+        want = ai2thor_state_dict(after[s])
+        params = _port_step(run, s, *start)[1]
+        per = _update_gaps(params, start[0], want, start[0])
+        u["port"][s] = _mean_gap(per, lr, _image_and_heads)
+        per_layer.append({k: per[k][0] / per[k][1] / lr for k in per
+                          if _image_and_heads(k)})
+        if s > 0:
+            prev = _jax_state(run, s - 1)
+            stepped = _port_step(run, s, *prev)[1]
+            u["behind"][s] = _mean_gap(_update_gaps(
+                stepped, prev[0], want, start[0]), lr, _image_and_heads)
+        with bf16_partial_sums(run["ttr"].model):
+            stepped = _port_step(run, s, *start)[1]
+        u["planted"][s] = _mean_gap(_update_gaps(
+            stepped, start[0], want, start[0]), lr, _image_and_heads)
+        twins[s] = max(_mean_gap(k[s], lr, _image_and_heads)
+                       for k in bf16_twins["one_step_parts"])
+        floor[s] = _spacing_floor({k: v for k, v in want.items()
+                                   if _image_and_heads(k)}, lr)
+    bound = np.fmax(twins, floor)
+    for s in range(n):
+        top = sorted(per_layer[s], key=lambda k: -per_layer[s][k])[:3]
+        print(f"step {s:2d}: U without the sound branch, in lr: port "
+              f"{u['port'][s]:.3e}, one step behind {u['behind'][s]:.3e}, "
+              f"bf16 partial sums {u['planted'][s]:.3e}; T {bound[s]:.3e} "
+              f"(JAX twins' largest {twins[s]:.3e}, float32 spacing "
+              f"{floor[s]:.3e}); the port's largest per-layer U "
+              + ", ".join(f"{k} {per_layer[s][k]:.3e}" for k in top))
+    fails = np.flatnonzero(u["port"] > bound).tolist()
+    print("A2: the port fails T at steps", fails)
+    at = list(PARTED)
+    for name in ("behind", "planted"):
+        assert (u[name][at] > bound[at]).all(), (name, u[name])
+    # located: at each failing step, the tensor that carries the port's
+    # largest per-element U, each package's gradient against float64
+    ratios = []
+    for s in fails:
+        k = max(per_layer[s], key=per_layer[s].get)
+        port, jax_ = _gradient_errors(run, s)[k]
+        ratios.append(port / jax_)
+        print(f"step {s:2d}: {k} carries the port's largest U "
+              f"{per_layer[s][k]:.3e}; relative error from float64: port "
+              f"{port:.3e}, JAX {jax_:.3e} ({port / jax_:.2f}x)")
+    print("A2 located: port / JAX relative error at the located tensors",
+          np.round(ratios, 2).tolist(), "median", np.median(ratios))
+    assert max(ratios) <= 2, ratios  # over 2x would be a port fault
+
+
+def _bf16(x):
+    """x rounded to bf16, held in float64."""
+    return x.to(torch.bfloat16).double()
+
+
+def _f64_grads(run, params, inputs):
+    """The bf16 training loss's gradient evaluated in float64 at the same
+    bf16-rounded inputs: the images, both MFCCs and every parameter the
+    bf16 route casts (all but the BiGRU's, which it keeps in float32)
+    rounded to bf16, then the VAR's forward and backward in float64 with
+    no rounding inside (the CRNN's GRU in float64 too)."""
+    from var_tpu_torch.models.encoders import VARPretextNet, conv
+    from var_tpu_torch.ops.gru import bigru_final
+    from var_tpu_torch.ops.losses import l2_normalize, triplet_margin_loss
+
+    model = VARPretextNet(3, "ai2thor", torch.float64).double()
+    model.load_state_dict({k: v.double() if "gru" in k else _bf16(v)
+                           for k, v in params.items()})
+    sb = model.sound_branch
+
+    def sound(x):
+        for layer in sb.convs:
+            x = torch.relu(conv(layer, x, torch.float64))
+        h = bigru_final(sb._gru("fwd"), sb._gru("bwd"),
+                        x.permute(0, 2, 3, 1).flatten(2))
+        return l2_normalize(model.sound_triplet(h))
+
+    image, pos, neg = (_bf16(x) for x in inputs)
+    loss = triplet_margin_loss(
+        l2_normalize(model.img_triplet(model.img_branch(image))), sound(pos),
+        sound(neg), run["tcfg"].tripletMargin)
+    loss.backward()
+    return {k: p.grad for k, p in model.named_parameters()}
+
+
+def _gradient_errors(run, s):
+    """At step `s`, from JAX's state and batch: each package's bf16
+    gradient of every parameter against _f64_grads at its own
+    bf16-rounded inputs, as (port, JAX) relative errors |g - g64| /
+    |g64| per parameter tensor."""
+    if "jgrad" not in run:
+        run["jgrad"] = jax.jit(jax.grad(run["jtr"]._loss_fn))
+    params = run["jsteps"][s]["params"]
+    start = ai2thor_state_dict(params)
+    jin = _jax_inputs(run, s)
+    jg = ai2thor_state_dict(_np_tree(run["jgrad"](jax.tree_util.tree_map(
+        jnp.asarray, params), *jin)))
+    tin = _port_inputs(run, s)
+    tg = _port_grads(run, start, tin)
+    jref = _f64_grads(run, start, [torch.from_numpy(np.asarray(x))
+                                   for x in jin])
+    tref = _f64_grads(run, start, tin)
+    return {k: (float((tg[k] - tref[k]).norm() / tref[k].norm()),
+                float((jg[k].double() - jref[k]).norm() / jref[k].norm()))
+            for k in tref}
+
+
+def _port_grads(run, params, inputs):
+    """The port's bf16 gradient of the step's loss at `params`."""
+    from var_tpu_torch.ops.losses import triplet_margin_loss
+
+    model = run["ttr"].model
+    model.load_state_dict(params)
+    model.zero_grad(set_to_none=True)
+    out = model(*inputs)
+    triplet_margin_loss(out["image_feat"], out["sound_feat_positive"],
+                        out["sound_feat_negative"],
+                        run["tcfg"].tripletMargin).backward()
+    return {k: p.grad.double() for k, p in model.named_parameters()}
+
+
+def _bf16_losses(out_dir):
+    """Both packages' bf16 run (var_runs_bf16's, without the recording)
+    in this process, every step's loss written to OUT_DIR/losses.json."""
+    import json
+
+    run = _var_runs(out_dir, computeDtype="bfloat16")
+    out = {k: np.concatenate([e["losses"] for e in run[log]]).tolist()
+           for k, log in (("jax", "jlog"), ("port", "tlog"))}
+    with open(os.path.join(out_dir, "losses.json"), "w") as f:
+        json.dump(out, f)
+    return out
+
+
+@pytest.mark.slow
+def test_var_at_bf16_losses_at_xla_default_flags(var_runs_bf16, tmp_path):
+    """F5 at XLA's own compile flags. tests/conftest.py compiles JAX at
+    --xla_backend_optimization_level=0 with the expensive LLVM passes off;
+    at bf16 that changes JAX's arithmetic (which bf16 roundings a fusion
+    keeps), and with it JAX's initial draw, which both runs start from.
+    In a process of its own, without those flags (as the JAX package runs
+    for a user), the same 15 bf16 steps: the port's loss at every step
+    within 2 EPS of JAX's, [losses]' bound. Printed beside it: JAX at the
+    default flags against JAX at the tests' flags (this process's
+    var_runs_bf16), how far the reference parts from itself under its
+    compile flags alone."""
+    import json
+    import subprocess
+    import sys
+
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env.update(JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+         env.get("PYTHONPATH", "")]))
+    subprocess.run([sys.executable, __file__, "bf16-losses", str(tmp_path)],
+                   env=env, check=True, timeout=1200)
+    with open(tmp_path / "losses.json") as f:
+        default = {k: np.array(v) for k, v in json.load(f).items()}
+    gap = np.abs(default["port"] - default["jax"]) / EPS
+    here = np.concatenate([j["losses"] for j in var_runs_bf16["jlog"]])
+    own = np.abs(default["jax"] - here) / EPS
+    print("XLA's default flags, port against JAX, loss gap in EPS:",
+          np.round(gap, 3).tolist())
+    print("JAX at the default flags against JAX at the tests' flags, EPS:",
+          np.round(own, 3).tolist())
+    assert gap.max() <= 2, np.round(gap, 3).tolist()
 
 
 def test_initial_draw_matches_jax_in_distribution():
@@ -569,3 +877,25 @@ def test_initial_draw_matches_jax_in_distribution():
             assert not a.any() and not b.any(), name
             continue
         assert stats.ks_2samp(a, b).pvalue >= 1e-3, name
+
+
+# -- F5's bf16 run outside pytest ---------------------------------------------------
+#
+#     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_grid_var_epochs.py \
+#         bf16-losses OUT_DIR
+#
+# runs both packages' 15 bf16 steps (var_runs_bf16's collection, knobs and
+# JAX's initial draw) under whatever XLA_FLAGS the shell gives, and writes
+# every step's loss of each package to OUT_DIR/losses.json.
+
+if __name__ == "__main__":
+    import argparse
+    import pathlib
+
+    ap = argparse.ArgumentParser()
+    sub = ap.add_subparsers(dest="command", required=True)
+    sub.add_parser("bf16-losses").add_argument("out_dir")
+    a = ap.parse_args()
+    torch.set_num_threads(2)  # as the module's fixtures
+    pathlib.Path(a.out_dir).mkdir(parents=True, exist_ok=True)
+    _bf16_losses(pathlib.Path(a.out_dir))

@@ -34,4 +34,4 @@ def make_entry_points(config, env: str):
         from .grid_sim import GridHousePretextSim, GridHouseSim
 
         return GridHousePretextSim, GridHouseSim
-    raise NotImplementedError(f"env {env!r} is not ported yet")
+    raise NotImplementedError(env)
